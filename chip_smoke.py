@@ -1,0 +1,526 @@
+#!/usr/bin/env python3
+"""Drive ``conzic_torch`` on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py [--iters 15]
+
+Phases, each printing its own lines:
+
+1. environment: versions, the card's name and power limit, the kernel build
+   (``nvcc`` into ``build/conzic_torch/``) and the TF32 switches (off);
+2. kernels: each CUDA kernel against its plain PyTorch version on the card,
+   in bf16 and fp32, at the shapes free captioning gives it, with the
+   kernel's time beside the plain version's, a PyTorch library call's and
+   the bound (bytes over 3.35 TB/s or operations over the peak rate);
+3. agreement: a tiny fp32 captioner run through the kernels and again with
+   every tensor on the CPU must give identical caption ids;
+4. main path: full-width ``bert-base-uncased`` + CLIP ViT-B/32 towers with
+   random seeded bf16 weights caption B=32 seeded images with the settings
+   of bench.py (k=200, sentence_len 10, clip_len 24, sequential order,
+   prompt "Image of a", 800-row chunks, prompt-only prefix K/V). The launch
+   counts of both kernels over that run are read and checked.
+
+The last two lines are a JSON object with one entry per kernel and
+``{"ok": true, "device": {...}}``. Without CUDA, or when a phase fails, the
+script exits non-zero without them. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from typing import Callable, List
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from conzic_torch.config import ConzicConfig
+from conzic_torch.engine.sampler import Captioner
+from conzic_torch.kernels import build
+from conzic_torch.kernels.layer_norm import layer_norm, layer_norm_plain
+from conzic_torch.kernels.masked_attention import (
+    masked_attention,
+    masked_attention_plain,
+)
+from conzic_torch.models.configs import BertConfig, CLIPConfig
+from conzic_torch.ops.attention import attention_keep_mask
+from conzic_torch.text.vocab import make_fullsize_wordpiece_vocab
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense tensor-core bf16
+                  torch.float32: 67e12}  # fp32 outside the tensor cores
+# kernel vs plain version: fp32 to 1e-4 absolute (sums in another order);
+# bf16 to one bf16 ulp of max(|plain|, 1) (the two round at one place each)
+BF16_ULP = 2.0 ** -7
+FP32_ATOL = 1e-4
+AGREE_COS_ATOL = 1e-4
+
+KERNELS = {
+    "layer_norm": dict(route="cuda", source="conzic_torch/csrc/layer_norm.cu",
+                       replaces="conzic_tpu/ops/fused_ln.py:90"),
+    "masked_attention": dict(
+        route="cuda", source="conzic_torch/csrc/masked_attention.cu",
+        replaces="conzic_tpu/ops/fused_attention.py:112"),
+}
+WRAPPERS = {"layer_norm": layer_norm, "masked_attention": masked_attention}
+DEVICE = "cuda"
+MAIN = dict(batch=32, top_k=200, sentence_len=10, clip_len=24,
+            prompt="Image of a", row_chunk=800, kv_chunk=16)
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn: Callable[[], object], reps: int) -> float:
+    """Mean device time of one call of ``fn``: ``reps`` calls are captured
+    in one CUDA graph and the graph's replay is timed with CUDA events, so
+    the host's launch overhead is left out of the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Case:
+    kernel: str
+    label: str
+    dtype: torch.dtype
+    kernel_fn: Callable[[], torch.Tensor]
+    plain_fn: Callable[[], torch.Tensor]
+    library_fn: Callable[[], torch.Tensor]  # timed only, never checked
+    n_bytes: int  # each input read once, each output written once
+    n_ops: int  # what these inputs need
+
+    def bound(self):
+        t_bytes = self.n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = self.n_ops / PEAK_OPS_PER_S[self.dtype] * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+
+
+def ln_case(label, rows, feat, eps, dtype, gen) -> Case:
+    x = (torch.randn(rows, feat, device=DEVICE, generator=gen) * 3 + 1)
+    x = x.to(dtype)
+    # the main path stores weights in bf16 (param_dtype="bfloat16")
+    scale = (torch.rand(feat, device=DEVICE, generator=gen) + 0.5).to(dtype)
+    bias = torch.randn(feat, device=DEVICE, generator=gen).to(dtype)
+    elem = x.element_size()
+    return Case(
+        "layer_norm", label, dtype,
+        lambda: layer_norm(x, scale, bias, eps),
+        lambda: layer_norm_plain(x, scale, bias, eps),
+        lambda: F.layer_norm(x, (feat,), scale, bias, eps),
+        n_bytes=2 * rows * feat * elem + 2 * feat * scale.element_size(),
+        n_ops=8 * rows * feat)
+
+
+def attn_case(label, N, Sq, Sk, H, D, causal, with_lens, dtype, gen) -> Case:
+    def draw(S):
+        return torch.randn(N, S, H, D, device=DEVICE, generator=gen).to(dtype)
+
+    q, k, v = draw(Sq), draw(Sk), draw(Sk)
+    lens = None
+    if with_lens:  # every row keeps its whole causal reach of the prefix
+        lens = torch.randint(Sk - Sq + 1, Sk + 1, (N,), device=DEVICE,
+                             generator=gen, dtype=torch.int32)
+    keep = attention_keep_mask(lens, N, Sq, Sk, causal, q.device)
+    kept = int(keep.sum().item()) * H
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = keep if (causal or with_lens) else None
+    elem = q.element_size()
+    return Case(
+        "masked_attention", label, dtype,
+        lambda: masked_attention(q, k, v, lens, causal),
+        lambda: masked_attention_plain(q, k, v, lens, causal),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               scale=D ** -0.5),
+        n_bytes=(2 * N * Sq + 2 * N * Sk) * H * D * elem
+        + (4 * N if with_lens else 0),
+        n_ops=4 * kept * D)
+
+
+def main_path_cases(shape, dtype, gen) -> List[Case]:
+    """Every call shape free captioning gives the two kernels; the first
+    of each kernel is the one that dominates a Gibbs step."""
+    B, kc_rows, P, S = shape["B"], shape["rows"], shape["P"], shape["S_suf"]
+    L = shape["bert_len"]
+    return [
+        ln_case("text suffix chunk", kc_rows * S, 512, 1e-5, dtype, gen),
+        ln_case("text pooled rows", kc_rows, 512, 1e-5, dtype, gen),
+        ln_case("bert rows", B * L, 768, 1e-12, dtype, gen),
+        ln_case("vision rows", B * 50, 768, 1e-5, dtype, gen),
+        attn_case("text suffix chunk", kc_rows, S, P + S, 8, 64, True, True,
+                  dtype, gen),
+        attn_case("text pooled (Sq=1)", kc_rows, 1, P + S, 8, 64, False, True,
+                  dtype, gen),
+        attn_case("text prompt prefix", B, P, P, 8, 64, True, False, dtype,
+                  gen),
+        attn_case("bert full rows", B, L, L, 12, 64, False, True, dtype, gen),
+        attn_case("bert pooled (Sq=1)", B, 1, L, 12, 64, False, True, dtype,
+                  gen),
+        attn_case("vision", B, 50, 50, 12, 64, False, False, dtype, gen),
+    ]
+
+
+def phase_kernels(shape) -> dict:
+    """Returns, per kernel, the numbers of its dominant bf16 case."""
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    summary = {}
+    failures = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in main_path_cases(shape, dtype, gen):
+            got = case.kernel_fn()
+            want = case.plain_fn()
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            if dtype == torch.bfloat16:
+                ok = bool((diff <= BF16_ULP * want.float().abs().clamp(
+                    min=1.0)).all())
+                tol = "1 bf16 ulp of max(|plain|,1)"
+            else:
+                ok = err <= FP32_ATOL
+                tol = f"{FP32_ATOL:g} abs"
+            ms = time_ms(case.kernel_fn, 50)
+            plain_ms = time_ms(case.plain_fn, 20)
+            lib_ms = time_ms(case.library_fn, 50)
+            bound_ms, bound_by = case.bound()
+            dt = str(dtype).replace("torch.", "")
+            say(f"kernel {case.kernel} [{case.label}, {dt}] "
+                f"max_abs_err={err:.3g} (tol {tol}) {'ok' if ok else 'FAIL'}"
+                f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+                f"{lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+            if not ok:
+                failures.append(f"{case.kernel} [{case.label}, {dt}]")
+            if dtype == torch.bfloat16 and case.kernel not in summary:
+                summary[case.kernel] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                    case=case.label)
+    if failures:
+        raise AssertionError("kernel disagrees with its plain version: "
+                             + ", ".join(failures))
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: the engine
+# ---------------------------------------------------------------------------
+
+
+def run_args(**kw):
+    return dict(prompt=MAIN["prompt"], temperature=0.1, alpha=0.02, beta=2.0,
+                **kw)
+
+
+def phase_agreement() -> None:
+    """A tiny fp32 captioner through the kernels == the same on the CPU."""
+    cfg = ConzicConfig(dtype="float32")
+    cpu = Captioner.from_random(config=cfg, seed=0, device="cpu")
+    gpu = Captioner(copy.deepcopy(cpu.bert_model),
+                    copy.deepcopy(cpu.clip_model), cpu.wp, cpu.bpe, cfg,
+                    device=DEVICE)
+    v = cpu.clip_model.config.vision
+    px = np.random.RandomState(0).rand(3, v.image_size, v.image_size,
+                                       v.num_channels).astype(np.float32)
+    emb_cpu = cpu.encode_images(px)
+    emb_gpu = gpu.encode_images(px).cpu()
+    emb_err = float((emb_cpu - emb_gpu).abs().max())
+    if emb_err > AGREE_COS_ATOL:
+        raise AssertionError(f"image embeddings differ by {emb_err:.3g}")
+    for order in ("sequential", "shuffle"):
+        args = run_args(max_len=6, top_k=16, max_iter=2, order=order,
+                        n_samples=2)
+        a = cpu.run(emb_cpu, rng=np.random.RandomState(7), **args)
+        b = gpu.run(emb_cpu, rng=np.random.RandomState(7), **args)
+        same = (bool((a.iter_ids == b.iter_ids).all())
+                and bool((a.best_ids == b.best_ids).all()))
+        cos_err = float(np.abs(np.asarray(a.clip_score_sequence)
+                               - np.asarray(b.clip_score_sequence)).max())
+        say(f"agreement [{order}]: caption ids identical={same} "
+            f"max cosine diff={cos_err:.3g} (tol {AGREE_COS_ATOL:g}) "
+            f"image embed diff={emb_err:.3g}")
+        if not same or cos_err > AGREE_COS_ATOL:
+            raise AssertionError(f"GPU and CPU runs differ ({order})")
+
+
+def full_captioner(dtype: str) -> Captioner:
+    cfg = ConzicConfig(dtype=dtype, param_dtype=dtype,
+                       clip_len=MAIN["clip_len"],
+                       clip_row_chunk=MAIN["row_chunk"],
+                       kv_chunk_size=MAIN["kv_chunk"])
+    return Captioner.from_random(
+        config=cfg, bert_config=BertConfig(), clip_config=CLIPConfig(),
+        seed=0, wp_vocab=make_fullsize_wordpiece_vocab(),
+        clip_text_vocab_size=49408, device=DEVICE)
+
+
+def main_shape(cap: Captioner) -> dict:
+    """The kernels' call shapes on the main path, from the engine's spec."""
+    L = MAIN["sentence_len"]
+    init = cap.init_ids(MAIN["prompt"], L, 1)
+    seed_len = init.shape[1] - L - 1
+    chunks = cap._prefix_chunks("sequential", init, seed_len, L)
+    spec = cap._spec(seed_len, L, MAIN["top_k"], chunks)
+    if chunks is None or len(chunks) != 1:
+        raise AssertionError(f"expected one prompt-only prefix chunk, got "
+                             f"{chunks}")
+    P = chunks[0][0]
+    B, k = MAIN["batch"], MAIN["top_k"]
+    kc = max(1, spec.clip_row_chunk // B)
+    while k % kc:
+        kc -= 1
+    return dict(B=B, P=P, S_suf=spec.clip_len - P, rows=B * kc,
+                n_chunks=k // kc, bert_len=spec.seq_len, seed_len=seed_len)
+
+
+def check_output(cap: Captioner, res, iters: int, shape: dict) -> None:
+    B, L = MAIN["batch"], MAIN["sentence_len"]
+    ids = res.iter_ids
+    if ids.shape != (iters, B, shape["bert_len"]):
+        raise AssertionError(f"iter_ids shape {ids.shape}")
+    init = cap.init_ids(MAIN["prompt"], L, B)
+    seed = shape["seed_len"]
+    if not ((ids[:, :, :seed] == init[:, :seed]).all()
+            and (ids[:, :, -1] == init[:, -1]).all()):
+        raise AssertionError("the prompt or [SEP] was overwritten")
+    words = ids[:, :, seed:seed + L]
+    if (words < 0).any() or (words >= cap.wp.vocab_size).any() or (
+            words == cap.wp.mask_token_id).any():
+        raise AssertionError("a slot holds an id outside the vocabulary "
+                             "or is still [MASK]")
+    cos = np.asarray(res.clip_score_sequence, np.float64)
+    if not np.isfinite(cos).all() or np.abs(cos).max() > 1.0 + 1e-3:
+        raise AssertionError("cosines are not finite values in [-1, 1]")
+    if len(res.gen_texts_list) != iters + 1:
+        raise AssertionError("expected one caption list per iteration "
+                             "and the best list")
+
+
+def phase_main(iters: int, cap: Captioner, shape: dict, pixels) -> dict:
+    B, L = MAIN["batch"], MAIN["sentence_len"]
+    args = run_args(max_len=L, top_k=MAIN["top_k"], order="sequential")
+    # warm-up: cuBLAS handles, the allocator's pools
+    cap.run(cap.encode_images(pixels), max_iter=1,
+            rng=np.random.RandomState(42), **args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    embeds = cap.encode_images(pixels)
+    res = cap.run(embeds, max_iter=iters, rng=np.random.RandomState(42),
+                  **args)
+    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = iters * L
+    say(f"main path: B={B} k={MAIN['top_k']} sentence_len={L} "
+        f"clip_len={MAIN['clip_len']} iterations={iters} "
+        f"prefix P={shape['P']} suffix={shape['S_suf']} "
+        f"row chunks={shape['n_chunks']}x{shape['rows']} rows")
+    say(f"main path: {res.elapsed_s:.3f} s for {steps} Gibbs steps, "
+        f"{B / res.elapsed_s:.4f} caps/s, {res.elapsed_s / steps:.5f} s "
+        f"per Gibbs step, peak memory {peak_gib:.2f} GiB")
+    # what the engine's structure predicts: per step, BERT (embeddings LN,
+    # 2 per layer, MLM head LN; 1 attention per layer) and per row chunk
+    # the text tower (2 LN per layer + final LN; 1 attention per layer);
+    # once per generation the prompt prefix (text tower) and the vision
+    # tower (pre-LN, 2 per layer, post-LN)
+    nb = cap.bert_model.config.num_layers
+    nt = cap.clip_model.config.text.num_layers
+    nv = cap.clip_model.config.vision.num_layers
+    once = {"layer_norm": (2 * nt + 1) + (2 * nv + 2),
+            "masked_attention": nt + nv}
+    per_step = {"layer_norm": 2 * nb + 2 + (2 * nt + 1) * shape["n_chunks"],
+                "masked_attention": nb + nt * shape["n_chunks"]}
+    want = {n: once[n] + steps * per_step[n] for n in once}
+    say(f"launches: {launches}; the engine's structure gives {want}: "
+        f"{once} once per generation and {per_step} per Gibbs step")
+    if any(n <= 0 for n in launches.values()):
+        raise AssertionError(f"a kernel never launched: {launches}")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    check_output(cap, res, iters, shape)
+    say(f"first caption: {res.gen_texts_list[-2][0]!r}")
+    return dict(launches=launches, result=res, embeds=embeds)
+
+
+def phase_fp32(pixels, bf16_result, shape) -> None:
+    """The same generation at fp32, one iteration: the share of caption
+    ids equal to the bf16 run's first iteration (information only)."""
+    cap = full_captioner("float32")
+    L = MAIN["sentence_len"]
+    res = cap.run(cap.encode_images(pixels), max_iter=1,
+                  rng=np.random.RandomState(42),
+                  **run_args(max_len=L, top_k=MAIN["top_k"],
+                             order="sequential"))
+    check_output(cap, res, 1, shape)
+    seed = shape["seed_len"]
+    a = bf16_result.iter_ids[0, :, seed:seed + L]
+    b = res.iter_ids[0, :, seed:seed + L]
+    say(f"fp32 vs bf16, first iteration: {float((a == b).mean()):.4f} of "
+        f"caption ids agree ({res.elapsed_s:.3f} s at fp32)")
+
+
+# kernel-name fragments -> the part of a Gibbs step they belong to
+PROFILE_GROUPS = (
+    ("layer_norm kernel", ("layer_norm_kernel",)),
+    ("masked_attention kernel", ("masked_attention_kernel",)),
+    ("matrix products", ("nvjet", "gemm", "sm90_", "cutlass", "xmma")),
+    ("concatenation", ("CatArray",)),
+    ("sort (top-k)", ("sort", "Sort", "radix")),
+    ("gather / index", ("gather", "index", "Index", "scatter")),
+    ("reductions / softmax", ("reduce", "softmax", "Softmax")),
+)
+
+
+def phase_profile(cap: Captioner, embeds) -> None:
+    """One iteration of the main path under torch.profiler: device time by
+    kind of kernel, per Gibbs step, and the share of the window in which
+    the device ran no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    L = MAIN["sentence_len"]
+    args = run_args(max_len=L, top_k=MAIN["top_k"], order="sequential")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = cap.run(embeds, max_iter=1, rng=np.random.RandomState(42),
+                      **args)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        say("profile: the profiler recorded no device time")
+        return
+    busy, reach = 0.0, spans[0][0]
+    for start, end, _ in spans:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    window = reach - spans[0][0]
+    by_group, by_name = {}, {}
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+        group = next((g for g, keys in PROFILE_GROUPS
+                      if any(k in name for k in keys)), "other elementwise")
+        by_group[group] = by_group.get(group, 0.0) + (end - start)
+    total = sum(by_group.values())
+    say(f"profile: one iteration ({L} Gibbs steps) took {res.elapsed_s:.3f} s"
+        f" under the profiler; device busy {busy / 1e3:.3f} ms of a "
+        f"{window / 1e3:.3f} ms window, idle share {1 - busy / window:.4f}; "
+        f"{len(spans)} kernels")
+    for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        say(f"profile: {group}: {us / 1e3 / L:.3f} ms per Gibbs step "
+            f"({us / total:.4f} of device time)")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        say(f"profile kernel: {us / 1e3 / L:.3f} ms/step {name[:110]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--iters", type=int, default=15,
+                    help="Gibbs iterations of the main-path run")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile one iteration of the main path")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script drives the "
+              "port on an NVIDIA GPU", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    card = card_line()
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    say(f"card: {card}")
+    build_s = build.build_all()
+    say(f"kernels built in {build_s:.2f} s from conzic_torch/csrc "
+        f"({', '.join(build.SOURCES)})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+
+    t = time.perf_counter()
+    cap = full_captioner("bfloat16")
+    shape = main_shape(cap)
+    say(f"full-width captioner built in {time.perf_counter() - t:.2f} s; "
+        f"main-path shapes {shape}")
+
+    t = time.perf_counter()
+    summary = phase_kernels(shape)
+    say(f"phase kernels ok ({time.perf_counter() - t:.1f} s)")
+
+    t = time.perf_counter()
+    phase_agreement()
+    say(f"phase agreement ok ({time.perf_counter() - t:.1f} s)")
+
+    t = time.perf_counter()
+    v = cap.clip_model.config.vision
+    pixels = np.random.RandomState(0).rand(
+        MAIN["batch"], v.image_size, v.image_size,
+        v.num_channels).astype(np.float32)
+    main = phase_main(args.iters, cap, shape, pixels)
+    say(f"phase main path ok ({time.perf_counter() - t:.1f} s)")
+    if args.profile:
+        phase_profile(cap, main["embeds"])
+    del cap
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    phase_fp32(pixels, main["result"], shape)
+    say(f"phase fp32 ok ({time.perf_counter() - t:.1f} s); "
+        f"total {time.perf_counter() - t_start:.1f} s")
+
+    kernels = []
+    for name, meta in KERNELS.items():
+        s = summary[name]
+        kernels.append(dict(
+            name=name, **meta, launches=main["launches"][name],
+            max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
+            bound_ms=s["bound_ms"], bound_by=s["bound_by"],
+            library_ms=s["library_ms"]))
+    say(card_line())
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

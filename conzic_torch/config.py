@@ -1,0 +1,67 @@
+"""Configuration of the port.
+
+Counterpart of ``conzic_tpu/config.py``: the ``ConzicConfig`` fields that
+``Captioner`` reads for free captioning, with the reference package's names
+and defaults. The knobs of paths not ported yet are held at their defaults
+by :meth:`ConzicConfig.validate`, which raises ``NotImplementedError``
+naming the knob for any other value.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+# knob -> the only value the port supports so far
+_UNPORTED = {
+    "bridge_mode": "table",
+    "prune_k": 0,
+    "clip_window": 0,
+    "quant": "none",
+    "topk_mode": "exact",
+    "mask_impl": "gather",
+    "scan_layers": False,
+    "mesh_data_axis": 1,
+}
+
+
+@dataclasses.dataclass
+class ConzicConfig:
+    seed: int = 42  # default schedule RandomState of Captioner.run
+    stop_words_path: Optional[str] = None  # rule-derived mask when None
+    add_extra_stopwords: List[str] = dataclasses.field(default_factory=list)
+    dtype: str = "bfloat16"  # compute type on the GPU; "float32" for parity
+    param_dtype: str = "float32"  # "bfloat16" stores weights in bf16
+    # prefix-K/V reuse: the position sweep is cut into chunks of this many
+    # steps, each with a static bound on the candidates' shared CLIP
+    # prefix (engine/gibbs.py). 0 disables.
+    kv_chunk_size: int = 16
+    # candidate CLIP rows per text-tower pass; 0 disables chunking
+    clip_row_chunk: int = 800
+    # contexts longer than 48 cap a pass to about this many tokens
+    clip_token_budget: int = 16000
+    clip_len: int = 32  # static CLIP context (<= 77)
+    # pad candidate rows to this length (masked PAD columns); -1 = auto:
+    # round clip_len up to a multiple of 8 when it exceeds 64; 0 = off
+    clip_pad_to: int = -1
+    # knobs of paths not ported yet (validate() refuses other values)
+    bridge_mode: str = "table"
+    prune_k: int = 0
+    clip_window: int = 0
+    quant: str = "none"
+    topk_mode: str = "exact"
+    mask_impl: str = "gather"
+    scan_layers: bool = False
+    mesh_data_axis: int = 1
+
+    def validate(self) -> None:
+        for knob, supported in _UNPORTED.items():
+            if getattr(self, knob) != supported:
+                raise NotImplementedError(
+                    f"{knob}={getattr(self, knob)!r} is not ported to "
+                    f"conzic_torch yet (only {supported!r})")
+        for knob in ("dtype", "param_dtype"):
+            if getattr(self, knob) not in ("bfloat16", "float32"):
+                raise ValueError(f"unknown {knob} {getattr(self, knob)!r}")
+        if not 1 <= self.clip_len <= 77:
+            raise ValueError(f"clip_len={self.clip_len} is not in [1, 77]")

@@ -1,0 +1,348 @@
+"""High-level captioning API with the reference's result contract.
+
+Counterpart of ``conzic_tpu/engine/sampler.py`` for free captioning:
+``Captioner`` owns the towers, tokenizers and tables, and ``run`` returns a
+``GenerationResult`` whose ``gen_texts_list`` holds one caption list per
+iteration followed by the best-by-cosine list at ``[-1]``.
+
+The entry points run on the CUDA device unless the caller names another
+device; they raise when CUDA is missing rather than fall back to the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import tempfile
+import time
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from conzic_torch.config import ConzicConfig
+from conzic_torch.engine.gibbs import EngineSpec, run_generation
+from conzic_torch.engine.orders import build_schedule
+from conzic_torch.models.bert import BertForMaskedLM
+from conzic_torch.models.clip import CLIPModel
+from conzic_torch.models.configs import BertConfig, CLIPConfig
+from conzic_torch.models.convert import from_jax_params
+from conzic_torch.text.bpe import CLIPBPETokenizer
+from conzic_torch.text.bridge import build_bridge_table
+from conzic_torch.text.vocab import (
+    build_token_masks,
+    load_stop_words_file,
+    make_test_bpe_files,
+    make_test_wordpiece_vocab,
+)
+from conzic_torch.text.wordpiece import WordPieceTokenizer
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """The device to run on; a CUDA device without CUDA raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "versions of the kernels on the CPU")
+    return device
+
+
+def random_init_(modules: List[nn.Module], seed: int,
+                 device: torch.device) -> None:
+    """Fill parameters by name, as the reference package's random init
+    does: LayerNorm scales 1, biases 0, ``logit_scale`` ln(100), every
+    other weight N(0, 0.02), drawn on ``device`` from a seeded
+    ``torch.Generator``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for module in modules:
+        for name, p in module.named_parameters():
+            if name.endswith("logit_scale"):
+                value = torch.full(p.shape, 4.6052, device=device)
+            elif name.endswith("scale"):
+                value = torch.ones(p.shape, device=device)
+            elif name.endswith("bias"):
+                value = torch.zeros(p.shape, device=device)
+            else:
+                value = 0.02 * torch.randn(p.shape, generator=gen,
+                                           device=device)
+            p.data = value
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    gen_texts_list: List[List[str]]  # per-iteration captions + best at [-1]
+    clip_score_sequence: List[List[float]]
+    iter_ids: np.ndarray  # (I, B, S)
+    iter_ctl: np.ndarray  # (I, B); zeros: free captioning has no control
+    best_ids: np.ndarray  # (B, S)
+    best_cos: np.ndarray  # (B,)
+    elapsed_s: float
+
+
+class Captioner:
+    def __init__(self, bert_model: BertForMaskedLM, clip_model: CLIPModel,
+                 wp: WordPieceTokenizer, bpe: CLIPBPETokenizer,
+                 config: Optional[ConzicConfig] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        self.cfg = config or ConzicConfig()
+        self.cfg.validate()
+        self.device = resolve_device(device)
+        self.wp, self.bpe = wp, bpe
+        stop_words = (load_stop_words_file(self.cfg.stop_words_path)
+                      if self.cfg.stop_words_path else None)
+        mask_mid, mask_last = build_token_masks(
+            wp.vocab, extra_stop_words=self.cfg.add_extra_stopwords,
+            stop_words=stop_words)
+        self.bridge = build_bridge_table(wp, bpe)
+        # the prefix-K/V bound assumes every selectable token adds >= 1
+        # CLIP piece; a user stop-words file may leave empty ones selectable
+        self._mask_allows_empty_piece = bool(
+            (((mask_mid > 0) | (mask_last > 0)) & (self.bridge.lens == 0))
+            .any())
+        dev = self.device
+        self.tables: Dict[str, torch.Tensor] = {
+            "mask_mid": torch.from_numpy(mask_mid).to(dev),
+            "mask_last": torch.from_numpy(mask_last).to(dev),
+            "bridge_ids": torch.from_numpy(self.bridge.ids).to(dev),
+            "bridge_lens": torch.from_numpy(self.bridge.lens).to(dev),
+        }
+        self.bert_model = bert_model.to(dev).eval().requires_grad_(False)
+        self.clip_model = clip_model.to(dev).eval().requires_grad_(False)
+        if self.cfg.param_dtype == "bfloat16":
+            # logit_scale stays in its type: similarity exponentiates it
+            for model in (self.bert_model, self.clip_model):
+                for name, p in model.named_parameters():
+                    if (p.dtype == torch.float32
+                            and not name.endswith("logit_scale")):
+                        p.data = p.data.to(torch.bfloat16)
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _tokenizers(wp_vocab: Optional[dict]):
+        vocab = wp_vocab or make_test_wordpiece_vocab()
+        wp = WordPieceTokenizer(
+            {t: i for i, t in enumerate(sorted(vocab, key=vocab.get))})
+        with tempfile.TemporaryDirectory(prefix="conzic_bpe_") as d:
+            bpe = CLIPBPETokenizer.from_files(*make_test_bpe_files(d))
+        return wp, bpe
+
+    @classmethod
+    def from_random(cls, config: Optional[ConzicConfig] = None,
+                    bert_config: Optional[BertConfig] = None,
+                    clip_config: Optional[CLIPConfig] = None, seed: int = 0,
+                    wp_vocab: Optional[dict] = None,
+                    clip_text_vocab_size: Optional[int] = None,
+                    device: Union[str, torch.device] = "cuda") -> "Captioner":
+        """Seeded random towers over synthetic vocabularies: tiny by
+        default, full width when given ``BertConfig()`` / ``CLIPConfig()``
+        and the full-size vocabulary."""
+        config = config or ConzicConfig()
+        device = resolve_device(device)
+        wp, bpe = cls._tokenizers(wp_vocab)
+        bert_config = dataclasses.replace(
+            bert_config or BertConfig.tiny(), vocab_size=wp.vocab_size)
+        clip_config = clip_config or CLIPConfig.tiny()
+        text_vocab = max(bpe.vocab_size, clip_text_vocab_size or 0,
+                         clip_config.text.vocab_size)
+        # the text tower pools at the first EOS: its id is the BPE's EOS
+        clip_config = dataclasses.replace(
+            clip_config, text=dataclasses.replace(
+                clip_config.text, vocab_size=text_vocab,
+                eos_token_id=bpe.eos_token_id))
+        dtype = _DTYPES[config.dtype]
+        with torch.device(device):
+            bert = BertForMaskedLM(bert_config, dtype=dtype)
+            clip = CLIPModel(clip_config, dtype=dtype)
+        random_init_([bert, clip], seed, device)
+        return cls(bert, clip, wp, bpe, config, device)
+
+    @classmethod
+    def from_jax_params(cls, bert_config: BertConfig, bert_params,
+                        clip_config: CLIPConfig, clip_params,
+                        wp: WordPieceTokenizer, bpe: CLIPBPETokenizer,
+                        config: Optional[ConzicConfig] = None,
+                        device: Union[str, torch.device] = "cuda"
+                        ) -> "Captioner":
+        """Towers carrying a ``conzic_tpu`` parameter tree (numpy leaves,
+        models/convert.py layout)."""
+        config = config or ConzicConfig()
+        device = resolve_device(device)
+        dtype = _DTYPES[config.dtype]
+        bert = from_jax_params(BertForMaskedLM(bert_config, dtype=dtype),
+                               bert_params)
+        clip = from_jax_params(CLIPModel(clip_config, dtype=dtype),
+                               clip_params)
+        return cls(bert, clip, wp, bpe, config, device)
+
+    # ------------------------------------------------------------------
+    def encode_images(self, pixels) -> torch.Tensor:
+        """Preprocessed NHWC pixels (B, H, W, C) or (H, W, C) -> (B, D)
+        image embeddings on the device."""
+        if isinstance(pixels, (list, tuple)):
+            raise NotImplementedError(
+                "image preprocessing is not ported yet: pass preprocessed "
+                "NHWC pixels")
+        if not isinstance(pixels, torch.Tensor):
+            pixels = torch.tensor(np.asarray(pixels, np.float32))
+        if pixels.dim() == 3:
+            pixels = pixels[None]
+        with torch.inference_mode():
+            return self.clip_model.encode_image(pixels.to(self.device))
+
+    def init_ids(self, prompt: str, max_len: int,
+                 batch_size: int) -> np.ndarray:
+        """[CLS] prompt [MASK]*L [SEP], replicated."""
+        row = self.wp.encode(prompt + self.wp.mask_token * max_len)
+        return np.tile(np.asarray(row, np.int32), (batch_size, 1))
+
+    def seed_len(self, prompt: str) -> int:
+        """[CLS] + prompt length, from an actual init encoding."""
+        return int(len(self.init_ids(prompt, 1, 1)[0])) - 2
+
+    def _prefix_chunks(self, order: str, init_row: np.ndarray,
+                       seed_len: int, max_len: int):
+        """Static ((prefix_len, n_steps), ...) chunks for exact prefix-K/V
+        reuse: the bound for a step is 1 (BOS) + the CLIP pieces of the
+        prompt + the sentence words surely committed before the edited
+        position (sequential: the position index; other orders: 0)."""
+        if self.cfg.kv_chunk_size <= 0:
+            return None
+        lens = np.asarray(self.bridge.lens)
+        prompt_ids = np.asarray(init_row[0][1:seed_len])
+        if prompt_ids.size and (lens[prompt_ids] <= 0).any():
+            return None  # the prompt itself bridges to nothing provable
+        base = 1 + int(lens[prompt_ids].sum())
+        per_word = 0 if self._mask_allows_empty_piece else 1
+        if order != "sequential" or per_word == 0:
+            return ((base, max_len),)
+        sz = self.cfg.kv_chunk_size
+        return tuple((base + start * per_word, min(sz, max_len - start))
+                     for start in range(0, max_len, sz))
+
+    def _clip_pad_to(self) -> int:
+        """-1 = auto: round contexts longer than 64 up to a multiple of 8;
+        0 = off; N = pad to N (ignored unless > clip_len)."""
+        pad, L = self.cfg.clip_pad_to, self.cfg.clip_len
+        if pad < 0:
+            pad = (L + 7) // 8 * 8 if L > 64 and L % 8 else 0
+        return pad if pad > L else 0
+
+    def _spec(self, seed_len: int, max_len: int, top_k: int,
+              prefix_chunks) -> EngineSpec:
+        row_chunk = self.cfg.clip_row_chunk
+        budget = self.cfg.clip_token_budget
+        if row_chunk and budget and self.cfg.clip_len > 48:
+            row_chunk = min(row_chunk, max(1, budget // self.cfg.clip_len))
+        return EngineSpec(
+            seed_len=seed_len,
+            sentence_len=max_len,
+            seq_len=seed_len + max_len + 1,
+            candidate_k=top_k,
+            clip_len=self.cfg.clip_len,
+            mask_token_id=self.wp.mask_token_id,
+            clip_bos_id=self.bridge.bos_id,
+            clip_eos_id=self.bridge.eos_id,
+            clip_pad_id=self.bridge.pad_id,
+            prefix_chunks=prefix_chunks,
+            clip_row_chunk=row_chunk,
+            clip_pad_to=self._clip_pad_to(),
+        )
+
+    def run(self, image_embeds, *, prompt: str, max_len: int, top_k: int,
+            temperature: float, max_iter: int, alpha: float, beta: float,
+            order: str = "sequential", ctl: Optional[str] = None,
+            rng: Optional[np.random.RandomState] = None,
+            n_samples: int = 1) -> GenerationResult:
+        """One full generation; snapshots are decoded on the host after it.
+
+        ``n_samples > 1`` runs independent samples as extra batch rows
+        (sample-major), each with its own schedule drawn from ``rng`` in
+        turn, so the result equals ``n_samples`` separate calls; unpack it
+        with :meth:`split_samples`."""
+        if ctl is not None:
+            raise NotImplementedError(
+                f"ctl={ctl!r}: controlled generation is not ported yet")
+        rng = rng or np.random.RandomState(self.cfg.seed)
+        top_k = min(top_k, self.wp.vocab_size)
+        scheds = [build_schedule(order, max_len, max_iter, rng)
+                  for _ in range(n_samples)]
+        init_row = self.init_ids(prompt, max_len, 1)
+        seed_len = init_row.shape[1] - max_len - 1
+        spec = self._spec(seed_len, max_len, top_k, self._prefix_chunks(
+            order, init_row, seed_len, max_len))
+        dev = self.device
+        if not isinstance(image_embeds, torch.Tensor):
+            image_embeds = torch.tensor(np.asarray(image_embeds, np.float32))
+        image_embeds = image_embeds.to(dev, torch.float32)
+        B0 = image_embeds.shape[0]
+        B = B0 * n_samples
+        image_embeds = torch.cat([image_embeds] * n_samples, dim=0)
+        init = self.init_ids(prompt, max_len, B)
+        n_masks = int((init[0] == self.wp.mask_token_id).sum())
+        if n_masks != max_len:
+            raise ValueError(f"prompt {prompt!r} encoded {n_masks} mask "
+                             f"slots, expected {max_len}")
+        # (I, steps, B): per-row positions, sample-major blocks
+        positions = np.concatenate(
+            [np.repeat(s.positions[:, :, None], B0, axis=2) for s in scheds],
+            axis=2)
+        hyper = {"alpha": alpha, "beta": beta, "temperature": temperature}
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            gen = run_generation(
+                spec, self.bert_model, self.clip_model, self.tables, hyper,
+                image_embeds, torch.from_numpy(init).long().to(dev),
+                torch.from_numpy(positions).long().to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        elapsed = time.perf_counter() - t0
+        return self._package_result(gen, elapsed)
+
+    def _package_result(self, gen, elapsed: float) -> GenerationResult:
+        """Decode snapshots into the reference-contract result."""
+        iter_ids = gen.iter_ids.cpu().numpy().astype(np.int32)
+        iter_cos = gen.iter_cos.cpu().numpy()
+        best_ids = gen.best_ids.cpu().numpy().astype(np.int32)
+        best_cos = gen.best_cos.cpu().numpy()
+        gen_texts_list = [self.wp.batch_decode(ids, skip_special_tokens=True)
+                          for ids in iter_ids]
+        clip_score_sequence = [[float(c) for c in cos] for cos in iter_cos]
+        decoded_best = self.wp.batch_decode(best_ids,
+                                            skip_special_tokens=True)
+        # "None" where the best never rose above the 0-initialised tracker
+        gen_texts_list.append([
+            decoded_best[b] if best_cos[b] > 0 else "None"
+            for b in range(best_ids.shape[0])])
+        clip_score_sequence.append([float(c) for c in best_cos])
+        return GenerationResult(
+            gen_texts_list=gen_texts_list,
+            clip_score_sequence=clip_score_sequence,
+            iter_ids=iter_ids,
+            iter_ctl=np.zeros(iter_cos.shape, np.float32),
+            best_ids=best_ids,
+            best_cos=best_cos,
+            elapsed_s=elapsed,
+        )
+
+    @staticmethod
+    def split_samples(result: GenerationResult,
+                      n_samples: int) -> List[GenerationResult]:
+        """Unpack a fused ``n_samples`` run into per-sample results."""
+        B0 = result.iter_ids.shape[1] // n_samples
+        out = []
+        for s in range(n_samples):
+            sl = slice(s * B0, (s + 1) * B0)
+            out.append(GenerationResult(
+                gen_texts_list=[row[sl] for row in result.gen_texts_list],
+                clip_score_sequence=[row[sl] for row in
+                                     result.clip_score_sequence],
+                iter_ids=result.iter_ids[:, sl],
+                iter_ctl=result.iter_ctl[:, sl],
+                best_ids=result.best_ids[sl],
+                best_cos=result.best_cos[sl],
+                elapsed_s=result.elapsed_s,
+            ))
+        return out

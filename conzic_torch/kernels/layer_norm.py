@@ -1,0 +1,94 @@
+"""LayerNorm: the CUDA kernel ``csrc/layer_norm.cu`` and its plain version.
+
+Counterpart of the Pallas kernel in ``conzic_tpu/ops/fused_ln.py``. Every
+LayerNorm of the port's three towers and of the MLM head goes through
+:func:`layer_norm`: a tensor on the CPU takes :func:`layer_norm_plain`, a
+tensor on a CUDA device takes the kernel, and anything the kernel does not
+take raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from conzic_torch.kernels import build
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis with fp32 statistics: a transcription of
+    the TPU kernel body (one-pass variance clamped at 0)."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    mean2 = (xf * xf).mean(-1, keepdim=True)
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * scale.float() + bias.float()
+    return y.to(x.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("layer_norm")
+    if not getattr(lib, "_conzic_typed", False):
+        p = ctypes.c_void_p
+        lib.conzic_layer_norm.argtypes = [
+            p, p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+            ctypes.c_int, ctypes.c_int, p,
+        ]
+        lib.conzic_layer_norm.restype = ctypes.c_int
+        lib.conzic_layer_norm_max_features.argtypes = [ctypes.c_int]
+        lib.conzic_layer_norm_max_features.restype = ctypes.c_int
+        lib._conzic_typed = True
+    return lib
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis of ``x`` (..., F) with ``scale`` and
+    ``bias`` (F,); output in ``x``'s type."""
+    if x.device.type == "cpu":
+        return layer_norm_plain(x, scale, bias, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"layer_norm: no kernel for device {x.device}")
+    F = x.shape[-1]
+    if x.dtype not in _DTYPES or scale.dtype not in _DTYPES:
+        raise TypeError(f"layer_norm: unsupported types x={x.dtype}, "
+                        f"scale={scale.dtype}")
+    if bias.dtype != scale.dtype:
+        raise TypeError("layer_norm: scale and bias must share a type")
+    if scale.shape != (F,) or bias.shape != (F,):
+        raise ValueError(f"layer_norm: scale/bias must be ({F},), got "
+                         f"{tuple(scale.shape)} / {tuple(bias.shape)}")
+    for name, t in (("x", x), ("scale", scale), ("bias", bias)):
+        if t.device != x.device:
+            raise ValueError(f"layer_norm: {name} is on {t.device}, "
+                             f"x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"layer_norm: {name} must be contiguous")
+    lib = _lib()
+    elem = x.element_size()
+    if F % (16 // elem) or x.data_ptr() % 16:
+        raise ValueError(
+            f"layer_norm: rows must be whole 16-byte vectors and x 16-byte "
+            f"aligned (F={F}, {x.dtype})")
+    if F > lib.conzic_layer_norm_max_features(elem):
+        raise ValueError(f"layer_norm: F={F} exceeds the kernel's "
+                         f"{lib.conzic_layer_norm_max_features(elem)}")
+    out = torch.empty_like(x)
+    rows = x.numel() // F if F else 0
+    code = lib.conzic_layer_norm(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        rows, F, float(eps), int(x.dtype == torch.bfloat16),
+        int(scale.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(lib, code, "layer_norm")
+    layer_norm.launches += 1
+    return out
+
+
+layer_norm.launches = 0

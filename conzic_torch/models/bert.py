@@ -1,0 +1,112 @@
+"""BERT encoder + masked-LM head.
+
+Counterpart of ``conzic_tpu/models/bert.py``: post-LayerNorm blocks, erf
+gelu, learned absolute positions, token types, and the MLM transform head
+whose decoder is tied to the word embeddings plus a per-vocab bias.
+``hidden`` runs the encoder (optionally computing the final layer only at
+``pool_idx``), ``lm_head`` projects hidden states to fp32 vocab logits.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from conzic_torch.models.configs import BertConfig
+from conzic_torch.models.layers import (
+    ACTIVATIONS,
+    LayerNorm,
+    Linear,
+    TransformerStack,
+)
+from conzic_torch.ops.attention import make_attn_mask
+
+
+class BertEmbeddings(nn.Module):
+    def __init__(self, config: BertConfig, dtype: torch.dtype):
+        super().__init__()
+        self.config, self.dtype = config, dtype
+        E = config.hidden_size
+        self.word = nn.Parameter(torch.empty(config.vocab_size, E))
+        self.position = nn.Parameter(
+            torch.empty(config.max_position_embeddings, E))
+        self.token_type = nn.Parameter(torch.empty(config.type_vocab_size, E))
+        self.ln = LayerNorm(E, config.layer_norm_eps)
+
+    def forward(self, input_ids: torch.Tensor,
+                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        S = input_ids.shape[1]
+        dt = self.dtype
+        positions = torch.arange(S, device=input_ids.device)
+        positions = positions + self.config.position_offset
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        x = (F.embedding(input_ids, self.word.to(dt))
+             + F.embedding(positions, self.position.to(dt))[None]
+             + F.embedding(token_type_ids, self.token_type.to(dt)))
+        return self.ln(x)
+
+
+class BertMlmHead(nn.Module):
+    """Transform (dense + act + LN), then the tied vocab projection with
+    fp32 output plus a free fp32 bias."""
+
+    def __init__(self, config: BertConfig, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.act = ACTIVATIONS[config.hidden_act]
+        self.transform = Linear(config.hidden_size, config.hidden_size,
+                                dtype=dtype)
+        self.ln = LayerNorm(config.hidden_size, config.layer_norm_eps)
+        self.bias = nn.Parameter(torch.zeros(config.vocab_size))
+
+    def forward(self, hidden: torch.Tensor,
+                word_embedding: torch.Tensor) -> torch.Tensor:
+        h = self.ln(self.act(self.transform(hidden)))
+        # the product of compute-type operands leaves in fp32 (the flax
+        # head's preferred_element_type=float32): rounding the logits to
+        # bf16 before the T=0.1 softmax would create extra ties. The
+        # operands' values are exact in fp32, so the fp32 product equals
+        # a bf16 product with fp32 accumulation and output.
+        w = word_embedding.to(self.dtype).float()
+        return F.linear(h.float(), w) + self.bias.float()
+
+
+class BertForMaskedLM(nn.Module):
+    def __init__(self, config: BertConfig,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.config, self.dtype = config, dtype
+        self.embeddings = BertEmbeddings(config, dtype)
+        self.encoder = TransformerStack(
+            num_layers=config.num_layers,
+            num_heads=config.num_heads,
+            head_dim=config.head_dim,
+            intermediate=config.intermediate_size,
+            act=config.hidden_act,
+            eps=config.layer_norm_eps,
+            pre_ln=False,
+            dtype=dtype,
+        )
+        self.mlm = BertMlmHead(config, dtype)
+
+    def hidden(self, input_ids: torch.Tensor,
+               attention_mask: Optional[torch.Tensor] = None,
+               token_type_ids: Optional[torch.Tensor] = None,
+               pool_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, S) ids -> (B, S, H) states, or (B, Q, H) at ``pool_idx``."""
+        x = self.embeddings(input_ids, token_type_ids)
+        mask = make_attn_mask(attention_mask)
+        return self.encoder(x, mask, pool_idx=pool_idx)
+
+    def lm_head(self, hidden: torch.Tensor) -> torch.Tensor:
+        return self.mlm(hidden, self.embeddings.word)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.lm_head(
+            self.hidden(input_ids, attention_mask, token_type_ids))

@@ -1,0 +1,201 @@
+"""Model hyperparameter configs.
+
+Mirrors the architectures the reference loads from HuggingFace at
+``reference demo.py:125`` (``bert-base-uncased`` via
+``AutoModelForMaskedLM``) and ``reference clip/clip.py:12``
+(``openai/clip-vit-base-patch32`` via ``CLIPModel``), re-specified here as
+plain dataclasses so the rebuild carries no torch/transformers dependency in
+its compute path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    """BERT encoder + masked-LM head.
+
+    Defaults are ``bert-base-uncased`` (110M params, 12L/768H, vocab 30,522).
+    """
+
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    hidden_act: str = "gelu"  # exact (erf) gelu, as HF BERT
+    pad_token_id: int = 0
+    # RoBERTa: position ids start at pad_token_id + 1 = 2 for unpadded
+    # sequences (HF create_position_ids_from_input_ids); BERT: 0
+    position_offset: int = 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @staticmethod
+    def tiny(vocab_size: int = 1024) -> "BertConfig":
+        """Small config for tests / dry-runs."""
+        return BertConfig(
+            vocab_size=vocab_size,
+            hidden_size=64,
+            num_layers=2,
+            num_heads=4,
+            intermediate_size=128,
+            max_position_embeddings=64,
+        )
+
+    @staticmethod
+    def from_hf_dict(d: dict) -> "BertConfig":
+        is_roberta = d.get("model_type") == "roberta"
+        pad = d.get("pad_token_id", 1 if is_roberta else 0)
+        return BertConfig(
+            vocab_size=d["vocab_size"],
+            hidden_size=d["hidden_size"],
+            num_layers=d["num_hidden_layers"],
+            num_heads=d["num_attention_heads"],
+            intermediate_size=d["intermediate_size"],
+            max_position_embeddings=d["max_position_embeddings"],
+            type_vocab_size=d.get("type_vocab_size", 2),
+            layer_norm_eps=d.get("layer_norm_eps", 1e-12),
+            hidden_act=d.get("hidden_act", "gelu"),
+            pad_token_id=pad,
+            position_offset=(pad + 1) if is_roberta else 0,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    """CLIP text tower. Defaults: ViT-B/32 text encoder (12L/512H, BPE vocab
+    49,408, context 77, pooled at EOT position)."""
+
+    vocab_size: int = 49408
+    hidden_size: int = 512
+    num_layers: int = 12
+    num_heads: int = 8
+    intermediate_size: int = 2048
+    max_position_embeddings: int = 77
+    layer_norm_eps: float = 1e-5
+    hidden_act: str = "quick_gelu"  # x * sigmoid(1.702 x)
+    eos_token_id: int = 49407
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @staticmethod
+    def tiny(vocab_size: int = 512) -> "CLIPTextConfig":
+        return CLIPTextConfig(
+            vocab_size=vocab_size,
+            hidden_size=64,
+            num_layers=2,
+            num_heads=4,
+            intermediate_size=128,
+            max_position_embeddings=77,
+            eos_token_id=vocab_size - 1,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    """CLIP vision tower. Defaults: ViT-B/32 (12L/768H, 224px, 32px patches)."""
+
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    image_size: int = 224
+    patch_size: int = 32
+    num_channels: int = 3
+    layer_norm_eps: float = 1e-5
+    hidden_act: str = "quick_gelu"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def seq_len(self) -> int:
+        return self.num_patches + 1  # + class token
+
+    @staticmethod
+    def tiny() -> "CLIPVisionConfig":
+        return CLIPVisionConfig(
+            hidden_size=64,
+            num_layers=2,
+            num_heads=4,
+            intermediate_size=128,
+            image_size=64,
+            patch_size=16,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    """Full dual-tower CLIP: vision + text + joint projection space.
+
+    The reference exposes image/text embeddings through
+    ``clip/clip.py:48-84`` and similarity through ``clip/clip.py:86-98``
+    (L2-normalize, ``logit_scale.exp()`` scaled cosine).
+    """
+
+    text: CLIPTextConfig = dataclasses.field(default_factory=CLIPTextConfig)
+    vision: CLIPVisionConfig = dataclasses.field(default_factory=CLIPVisionConfig)
+    projection_dim: int = 512
+    # HF stores logit_scale as a learned scalar; init value ln(100) ~ 4.6052
+    logit_scale_init: float = 4.6052
+
+    @staticmethod
+    def tiny() -> "CLIPConfig":
+        return CLIPConfig(
+            text=CLIPTextConfig.tiny(),
+            vision=CLIPVisionConfig.tiny(),
+            projection_dim=32,
+        )
+
+    @staticmethod
+    def from_hf_dict(d: dict) -> "CLIPConfig":
+        t, v = d["text_config"], d["vision_config"]
+        return CLIPConfig(
+            text=CLIPTextConfig(
+                vocab_size=t["vocab_size"],
+                hidden_size=t["hidden_size"],
+                num_layers=t["num_hidden_layers"],
+                num_heads=t["num_attention_heads"],
+                intermediate_size=t["intermediate_size"],
+                max_position_embeddings=t["max_position_embeddings"],
+                layer_norm_eps=t.get("layer_norm_eps", 1e-5),
+                hidden_act=t.get("hidden_act", "quick_gelu"),
+                eos_token_id=t.get("eos_token_id", 49407),
+            ),
+            vision=CLIPVisionConfig(
+                hidden_size=v["hidden_size"],
+                num_layers=v["num_hidden_layers"],
+                num_heads=v["num_attention_heads"],
+                intermediate_size=v["intermediate_size"],
+                image_size=v["image_size"],
+                patch_size=v["patch_size"],
+                layer_norm_eps=v.get("layer_norm_eps", 1e-5),
+                hidden_act=v.get("hidden_act", "quick_gelu"),
+            ),
+            projection_dim=d["projection_dim"],
+            logit_scale_init=d.get("logit_scale_init_value", 4.6052),
+        )
+
+
+def load_hf_config(path: str) -> dict:
+    """Read an HF ``config.json`` from a local checkpoint directory."""
+    with open(os.path.join(path, "config.json"), "r", encoding="utf-8") as f:
+        return json.load(f)

@@ -1,0 +1,219 @@
+"""Shared transformer building blocks.
+
+Counterpart of ``conzic_tpu/models/layers.py``: BERT (post-LayerNorm, erf
+gelu) and both CLIP towers (pre-LayerNorm, quick gelu) share one residual
+block. Parameters keep the type they were stored in and are cast to the
+module's compute ``dtype`` on use, as the flax modules do; every LayerNorm
+goes through the LayerNorm kernel and every attention through the
+masked-attention kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from conzic_torch.kernels.layer_norm import layer_norm
+from conzic_torch.kernels.masked_attention import masked_attention
+from conzic_torch.ops.attention import AttnMask
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's activation: ``x * sigmoid(1.702 x)``."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "gelu": F.gelu,  # erf form, as HF BERT
+    "quick_gelu": quick_gelu,
+}
+
+
+class Linear(nn.Module):
+    """``y = x W^T + b`` with the weight cast to the compute type on use."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = self.bias.to(self.dtype) if self.bias is not None else None
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis through the LayerNorm kernel (fp32
+    statistics, output in the input's type)."""
+
+    def __init__(self, features: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x.contiguous(), self.scale, self.bias, self.eps)
+
+
+class MultiHeadAttention(nn.Module):
+    """MHA with bias on all projections. ``prefix_kv``: per-image prefix
+    K/V (B, P, H, D) shared by the N = B*G rows of ``x``, broadcast and
+    concatenated in front of the row's own keys. ``x_kv``: keys/values come
+    from it while queries come from ``x`` (the pooled final layer)."""
+
+    def __init__(self, num_heads: int, head_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        E = num_heads * head_dim
+        self.num_heads, self.head_dim = num_heads, head_dim
+        self.query = Linear(E, E, dtype=dtype)
+        self.key = Linear(E, E, dtype=dtype)
+        self.value = Linear(E, E, dtype=dtype)
+        self.out = Linear(E, E, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, mask: AttnMask,
+                residual: Optional[torch.Tensor] = None,
+                prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                return_kv: bool = False,
+                x_kv: Optional[torch.Tensor] = None):
+        H, D = self.num_heads, self.head_dim
+        kv_src = x if x_kv is None else x_kv
+        N, Sq = x.shape[0], x.shape[1]
+        q = self.query(x).view(N, Sq, H, D)
+        k = self.key(kv_src).view(N, kv_src.shape[1], H, D)
+        v = self.value(kv_src).view(N, kv_src.shape[1], H, D)
+        if prefix_kv is not None:
+            pk, pv = prefix_kv
+            B, P = pk.shape[0], pk.shape[1]
+            G = N // B
+            pk_b = pk.to(k.dtype)[:, None].expand(B, G, P, H, D)
+            pv_b = pv.to(v.dtype)[:, None].expand(B, G, P, H, D)
+            k = torch.cat([pk_b.reshape(N, P, H, D), k], dim=1)
+            v = torch.cat([pv_b.reshape(N, P, H, D), v], dim=1)
+        out = masked_attention(q, k.contiguous(), v.contiguous(), mask.lens,
+                               mask.causal)
+        out = self.out(out.reshape(N, Sq, H * D))
+        if residual is not None:
+            out = out + residual
+        if return_kv:
+            return out, (k, v)
+        return out
+
+
+class Mlp(nn.Module):
+    def __init__(self, hidden: int, intermediate: int, act: str,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.act = ACTIVATIONS[act]
+        self.fc1 = Linear(hidden, intermediate, dtype=dtype)
+        self.fc2 = Linear(intermediate, hidden, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(self.fc1(x)))
+
+
+def _pooled_mask(mask: AttnMask, query_idx: torch.Tensor, n_rows: int,
+                 n_keys: int) -> AttnMask:
+    """The mask of the query rows at ``query_idx`` (N, 1) attending all
+    ``n_keys`` keys, as one non-causal query: a causal query at row i (of
+    ``n_rows``) sees keys col <= i + (n_keys - n_rows), which is folded
+    into its key length. Exact for any row, and equal to ``mask.lens`` at
+    the CLIP text tower's first-EOS row (the padding mask ends there)."""
+    if not mask.causal:
+        return AttnMask(lens=mask.lens, causal=False)
+    reach = (query_idx[:, 0] + (n_keys - n_rows) + 1).to(torch.int32)
+    lens = reach if mask.lens is None else torch.minimum(mask.lens, reach)
+    return AttnMask(lens=lens.contiguous(), causal=False)
+
+
+class TransformerBlock(nn.Module):
+    """One residual attention block.
+
+    ``pre_ln=False`` -> BERT ordering:  x = LN(x + Attn(x)); x = LN(x + MLP(x))
+    ``pre_ln=True``  -> CLIP ordering:  x = x + Attn(LN(x)); x = x + MLP(LN(x))
+    """
+
+    def __init__(self, num_heads: int, head_dim: int, intermediate: int,
+                 act: str, eps: float, pre_ln: bool,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        hidden = num_heads * head_dim
+        self.pre_ln = pre_ln
+        self.attention = MultiHeadAttention(num_heads, head_dim, dtype=dtype)
+        self.mlp = Mlp(hidden, intermediate, act, dtype=dtype)
+        self.ln1 = LayerNorm(hidden, eps)
+        self.ln2 = LayerNorm(hidden, eps)
+
+    def forward(self, x: torch.Tensor, mask: AttnMask,
+                prefix_kv=None, return_kv: bool = False,
+                query_idx: Optional[torch.Tensor] = None):
+        """``query_idx`` (N, 1): compute the block's output only at that
+        row (keys/values still span every position) — the final layer
+        before a pooled or masked-slot readout. Returns (N, 1, E)."""
+        if query_idx is not None:
+            n_keys = x.shape[1] + (prefix_kv[0].shape[1]
+                                   if prefix_kv is not None else 0)
+            qmask = _pooled_mask(mask, query_idx, x.shape[1], n_keys)
+            def take(a):
+                return torch.gather(
+                    a, 1, query_idx[:, :, None].expand(-1, -1, a.shape[-1]))
+
+            if self.pre_ln:
+                xn = self.ln1(x)
+                xq = self.attention(take(xn), qmask, residual=take(x),
+                                    prefix_kv=prefix_kv, x_kv=xn)
+                return xq + self.mlp(self.ln2(xq))
+            xq = self.attention(take(x), qmask, residual=take(x),
+                                prefix_kv=prefix_kv, x_kv=x)
+            xq = self.ln1(xq)
+            return self.ln2(xq + self.mlp(xq))
+        if self.pre_ln:
+            a = self.attention(self.ln1(x), mask, residual=x,
+                               prefix_kv=prefix_kv, return_kv=return_kv)
+            x, kv = a if return_kv else (a, None)
+            x = x + self.mlp(self.ln2(x))
+        else:
+            a = self.attention(x, mask, residual=x, prefix_kv=prefix_kv,
+                               return_kv=return_kv)
+            x, kv = a if return_kv else (a, None)
+            x = self.ln1(x)
+            x = self.ln2(x + self.mlp(x))
+        return (x, kv) if return_kv else x
+
+
+class TransformerStack(nn.Module):
+    """N blocks, named ``layer_i`` like the flax stack's unrolled layers."""
+
+    def __init__(self, num_layers: int, num_heads: int, head_dim: int,
+                 intermediate: int, act: str, eps: float, pre_ln: bool,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.layers = nn.ModuleList([
+            TransformerBlock(num_heads, head_dim, intermediate, act, eps,
+                             pre_ln, dtype=dtype)
+            for _ in range(num_layers)
+        ])
+
+    def forward(self, x: torch.Tensor, mask: AttnMask,
+                prefix_kvs: Optional[List] = None, return_kvs: bool = False,
+                pool_idx: Optional[torch.Tensor] = None):
+        """``pool_idx`` (N, 1): the output is only read at that row, so the
+        final layer computes just it; the output becomes (N, 1, E)."""
+        kvs = []
+        last = len(self.layers) - 1
+        for i, block in enumerate(self.layers):
+            pkv = prefix_kvs[i] if prefix_kvs is not None else None
+            if return_kvs:
+                x, kv = block(x, mask, prefix_kv=pkv, return_kv=True)
+                kvs.append(kv)
+            elif pool_idx is not None and i == last:
+                x = block(x, mask, prefix_kv=pkv, query_idx=pool_idx)
+            else:
+                x = block(x, mask, prefix_kv=pkv)
+        return (x, kvs) if return_kvs else x
