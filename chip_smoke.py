@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive ``conzic_torch`` on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--iters 15]
+    python3 chip_smoke.py [--iters 15] [--profile [ATTN_IMPL]]
+    python3 chip_smoke.py --trees DIR [DIR ...] [--reps 3]
 
 Phases, each printing its own lines:
 
@@ -12,16 +13,27 @@ Phases, each printing its own lines:
    kernel's time beside the plain version's, a PyTorch library call's and
    the bound (bytes over 3.35 TB/s or operations over the peak rate);
 3. agreement: a tiny fp32 captioner run through the kernels and again with
-   every tensor on the CPU must give identical caption ids;
+   every tensor on the CPU must give identical caption ids, under every
+   ``attn_impl`` and in the sequential, shuffle, span and parallel orders;
 4. main path: full-width ``bert-base-uncased`` + CLIP ViT-B/32 towers with
    random seeded bf16 weights caption B=32 seeded images with the settings
    of bench.py (k=200, sentence_len 10, clip_len 24, sequential order,
-   prompt "Image of a", 800-row chunks, prompt-only prefix K/V). The launch
-   counts of both kernels over that run are read and checked.
+   prompt "Image of a", 800-row chunks, prompt-only prefix K/V), once under
+   each ``attn_impl``. The launch counts of the kernels over each run are
+   read and checked against what the engine's structure gives.
 
-The last two lines are a JSON object with one entry per kernel and
+The last two lines are a JSON object with one entry per kernel (its
+``launches`` are those of the main-path run under the ``attn_impl`` that the
+kernel carries; ``launches_by_attn_impl`` has every run's) and
 ``{"ok": true, "device": {...}}``. Without CUDA, or when a phase fails, the
 script exits non-zero without them. It imports nothing of JAX.
+
+``--trees`` is for comparing commits on one card inside one call: it runs
+only the main path, under the default ``attn_impl``, in each checkout
+named (``.`` is this one; unpack another commit with ``git archive``), in
+the order given, one process per entry, ``--reps`` runs each, and prints
+each run's caps/s. Name the trees in turns (parent, change, change,
+parent): the host's load moves the number from run to run.
 """
 
 from __future__ import annotations
@@ -41,7 +53,16 @@ import torch.nn.functional as F
 
 from conzic_torch.config import ConzicConfig
 from conzic_torch.engine.sampler import Captioner
+from conzic_torch.config import ATTN_IMPLS
 from conzic_torch.kernels import build
+from conzic_torch.kernels.attention_block import (
+    attention_block,
+    attention_block_plain,
+)
+from conzic_torch.kernels.attention_with_out import (
+    attention_with_out,
+    attention_with_out_plain,
+)
 from conzic_torch.kernels.layer_norm import layer_norm, layer_norm_plain
 from conzic_torch.kernels.masked_attention import (
     masked_attention,
@@ -55,8 +76,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense tensor-core bf16
                   torch.float32: 67e12}  # fp32 outside the tensor cores
 # kernel vs plain version: fp32 to 1e-4 absolute (sums in another order);
-# bf16 to one bf16 ulp of max(|plain|, 1) (the two round at one place each)
+# bf16 to BF16_ULPS[kernel] bf16 ulps of max(|plain|, 1). One ulp where the
+# two round at one place each; the fused kernels round q, k, v and the
+# context on the way, and an fp32 sum taken in another order can flip one of
+# those roundings before the output is rounded again
 BF16_ULP = 2.0 ** -7
+BF16_ULPS = {"layer_norm": 1, "masked_attention": 1, "attention_with_out": 1,
+             "attention_block": 1}
 FP32_ATOL = 1e-4
 AGREE_COS_ATOL = 1e-4
 
@@ -66,8 +92,20 @@ KERNELS = {
     "masked_attention": dict(
         route="cuda", source="conzic_torch/csrc/masked_attention.cu",
         replaces="conzic_tpu/ops/fused_attention.py:112"),
+    "attention_with_out": dict(
+        route="cuda", source="conzic_torch/csrc/attention_with_out.cu",
+        replaces="conzic_tpu/ops/fused_attention.py:196"),
+    "attention_block": dict(
+        route="cuda", source="conzic_torch/csrc/attention_block.cu",
+        replaces="conzic_tpu/ops/fused_attn_block.py:96"),
 }
-WRAPPERS = {"layer_norm": layer_norm, "masked_attention": masked_attention}
+WRAPPERS = {"layer_norm": layer_norm, "masked_attention": masked_attention,
+            "attention_with_out": attention_with_out,
+            "attention_block": attention_block}
+# the attn_impl whose main-path run gives a kernel's launch count
+ROUTE_OF = {"layer_norm": "pallas", "masked_attention": "pallas",
+            "attention_with_out": "pallas_out",
+            "attention_block": "pallas_block"}
 DEVICE = "cuda"
 MAIN = dict(batch=32, top_k=200, sentence_len=10, clip_len=24,
             prompt="Image of a", row_chunk=800, kv_chunk=16)
@@ -174,9 +212,82 @@ def attn_case(label, N, Sq, Sk, H, D, causal, with_lens, dtype, gen) -> Case:
         n_ops=4 * kept * D)
 
 
+def _sdpa(q, k, v, mask, D):
+    """(N, S, H, D) tensors through the library's attention."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                         scale=D ** -0.5)
+    return out.transpose(1, 2)
+
+
+def with_out_case(label, N, Sq, Sk, H, D, E, dtype, gen) -> Case:
+    """Causal suffix-over-prefix attention with key lengths, then the
+    output projection. Weights and bias in the tensors' type, as the main
+    path stores them."""
+    def draw(*shape, std=1.0):
+        return (torch.randn(*shape, device=DEVICE, generator=gen)
+                * std).to(dtype)
+
+    q, k, v = draw(N, Sq, H, D), draw(N, Sk, H, D), draw(N, Sk, H, D)
+    wo, bo = draw(E, H * D, std=0.03), draw(E, std=0.1)
+    lens = torch.randint(Sk - Sq + 1, Sk + 1, (N,), device=DEVICE,
+                         generator=gen, dtype=torch.int32)
+    keep = attention_keep_mask(lens, N, Sq, Sk, True, q.device)
+    kept = int(keep.sum().item()) * H
+    elem = q.element_size()
+    return Case(
+        "attention_with_out", label, dtype,
+        lambda: attention_with_out(q, k, v, wo, bo, lens, True),
+        lambda: attention_with_out_plain(q, k, v, wo, bo, lens, True),
+        lambda: F.linear(_sdpa(q, k, v, keep, D).reshape(N, Sq, H * D), wo,
+                         bo),
+        n_bytes=((N * Sq + 2 * N * Sk) * H * D + N * Sq * E + E * H * D
+                 + E) * elem + 4 * N,
+        n_ops=4 * kept * D + 2 * N * Sq * H * D * E)
+
+
+def block_case(label, N, S, E, H, causal, with_lens, dtype, gen) -> Case:
+    def draw(*shape, std=1.0):
+        return (torch.randn(*shape, device=DEVICE, generator=gen)
+                * std).to(dtype)
+
+    D = E // H
+    x, res = draw(N, S, E), draw(N, S, E)
+    params = [t for _ in range(4) for t in (draw(E, E, std=0.03),
+                                            draw(E, std=0.1))]
+    wq, bq, wk, bk, wv, bv, wo, bo = params
+    lens = None
+    if with_lens:
+        lens = torch.randint(1, S + 1, (N,), device=DEVICE, generator=gen,
+                             dtype=torch.int32)
+    keep = attention_keep_mask(lens, N, S, S, causal, x.device)
+    kept = int(keep.sum().item()) * H
+    mask = keep if (causal or with_lens) else None
+
+    def library():
+        q, k, v = (F.linear(x, w, b).view(N, S, H, D)
+                   for w, b in ((wq, bq), (wk, bk), (wv, bv)))
+        ctx = _sdpa(q, k, v, mask, D).reshape(N, S, E)
+        return F.linear(ctx, wo, bo) + res
+
+    elem = x.element_size()
+    return Case(
+        "attention_block", label, dtype,
+        lambda: attention_block(x, res, *params, lens, heads=H,
+                                causal=causal),
+        lambda: attention_block_plain(x, res, *params, lens, heads=H,
+                                      causal=causal),
+        library,
+        n_bytes=(3 * N * S * E + 4 * E * E + 4 * E) * elem
+        + (4 * N if with_lens else 0),
+        n_ops=8 * N * S * E * E + 4 * kept * D)
+
+
 def main_path_cases(shape, dtype, gen) -> List[Case]:
-    """Every call shape free captioning gives the two kernels; the first
-    of each kernel is the one that dominates a Gibbs step."""
+    """Every call shape free captioning gives the kernels; the first of
+    each kernel is the one that dominates a Gibbs step under its
+    ``attn_impl``. The last block case is the full-row text pass the engine
+    makes without prefix K/V (``kv_chunk_size=0``)."""
     B, kc_rows, P, S = shape["B"], shape["rows"], shape["P"], shape["S_suf"]
     L = shape["bert_len"]
     return [
@@ -194,6 +305,12 @@ def main_path_cases(shape, dtype, gen) -> List[Case]:
         attn_case("bert pooled (Sq=1)", B, 1, L, 12, 64, False, True, dtype,
                   gen),
         attn_case("vision", B, 50, 50, 12, 64, False, False, dtype, gen),
+        with_out_case("text suffix chunk", kc_rows, S, P + S, 8, 64, 512,
+                      dtype, gen),
+        block_case("bert rows", B, L, 768, 12, False, False, dtype, gen),
+        block_case("vision rows", B, 50, 768, 12, False, False, dtype, gen),
+        block_case("text full-row chunk", kc_rows, P + S, 512, 8, True, True,
+                   dtype, gen),
     ]
 
 
@@ -210,9 +327,12 @@ def phase_kernels(shape) -> dict:
             diff = (got.float() - want.float()).abs()
             err = float(diff.max())
             if dtype == torch.bfloat16:
-                ok = bool((diff <= BF16_ULP * want.float().abs().clamp(
-                    min=1.0)).all())
-                tol = "1 bf16 ulp of max(|plain|,1)"
+                ulps = BF16_ULPS[case.kernel]
+                worst = float((diff / (BF16_ULP * want.float().abs().clamp(
+                    min=1.0))).max())
+                ok = worst <= ulps
+                tol = (f"{ulps} bf16 ulp of max(|plain|,1), worst "
+                       f"{worst:.3g}")
             else:
                 ok = err <= FP32_ATOL
                 tol = f"{FP32_ATOL:g} abs"
@@ -249,38 +369,48 @@ def run_args(**kw):
 
 
 def phase_agreement() -> None:
-    """A tiny fp32 captioner through the kernels == the same on the CPU."""
-    cfg = ConzicConfig(dtype="float32")
-    cpu = Captioner.from_random(config=cfg, seed=0, device="cpu")
-    gpu = Captioner(copy.deepcopy(cpu.bert_model),
-                    copy.deepcopy(cpu.clip_model), cpu.wp, cpu.bpe, cfg,
-                    device=DEVICE)
-    v = cpu.clip_model.config.vision
-    px = np.random.RandomState(0).rand(3, v.image_size, v.image_size,
-                                       v.num_channels).astype(np.float32)
-    emb_cpu = cpu.encode_images(px)
-    emb_gpu = gpu.encode_images(px).cpu()
-    emb_err = float((emb_cpu - emb_gpu).abs().max())
-    if emb_err > AGREE_COS_ATOL:
-        raise AssertionError(f"image embeddings differ by {emb_err:.3g}")
-    for order in ("sequential", "shuffle"):
-        args = run_args(max_len=6, top_k=16, max_iter=2, order=order,
-                        n_samples=2)
-        a = cpu.run(emb_cpu, rng=np.random.RandomState(7), **args)
-        b = gpu.run(emb_cpu, rng=np.random.RandomState(7), **args)
-        same = (bool((a.iter_ids == b.iter_ids).all())
-                and bool((a.best_ids == b.best_ids).all()))
-        cos_err = float(np.abs(np.asarray(a.clip_score_sequence)
-                               - np.asarray(b.clip_score_sequence)).max())
-        say(f"agreement [{order}]: caption ids identical={same} "
-            f"max cosine diff={cos_err:.3g} (tol {AGREE_COS_ATOL:g}) "
-            f"image embed diff={emb_err:.3g}")
-        if not same or cos_err > AGREE_COS_ATOL:
-            raise AssertionError(f"GPU and CPU runs differ ({order})")
+    """A tiny fp32 captioner through the kernels == the same on the CPU,
+    under every attn_impl: the four orders with prompt-prefix K/V, and the
+    sequential order once more with every candidate row in full
+    (kv_chunk_size=0), where the block kernel takes the causal text rows."""
+    for impl in ATTN_IMPLS:
+        cfg = ConzicConfig(dtype="float32", attn_impl=impl)
+        cpu = Captioner.from_random(config=cfg, seed=0, device="cpu")
+        gpu = Captioner(copy.deepcopy(cpu.bert_model),
+                        copy.deepcopy(cpu.clip_model), cpu.wp, cpu.bpe, cfg,
+                        device=DEVICE)
+        v = cpu.clip_model.config.vision
+        px = np.random.RandomState(0).rand(3, v.image_size, v.image_size,
+                                           v.num_channels).astype(np.float32)
+        emb_cpu = cpu.encode_images(px)
+        emb_gpu = gpu.encode_images(px).cpu()
+        emb_err = float((emb_cpu - emb_gpu).abs().max())
+        if emb_err > AGREE_COS_ATOL:
+            raise AssertionError(f"image embeddings differ by {emb_err:.3g} "
+                                 f"({impl})")
+        runs = [(order, 16) for order in ("sequential", "shuffle", "span",
+                                          "parallel")] + [("sequential", 0)]
+        for order, kv_chunk in runs:
+            cfg.kv_chunk_size = kv_chunk  # read at run time by both
+            args = run_args(max_len=5, top_k=16, max_iter=2, order=order,
+                            n_samples=2)
+            a = cpu.run(emb_cpu, rng=np.random.RandomState(7), **args)
+            b = gpu.run(emb_cpu, rng=np.random.RandomState(7), **args)
+            same = (bool((a.iter_ids == b.iter_ids).all())
+                    and bool((a.best_ids == b.best_ids).all()))
+            cos_err = float(np.abs(np.asarray(a.clip_score_sequence)
+                                   - np.asarray(b.clip_score_sequence)).max())
+            say(f"agreement [{impl}, {order}, kv_chunk_size={kv_chunk}]: "
+                f"caption ids identical={same} max cosine diff="
+                f"{cos_err:.3g} (tol {AGREE_COS_ATOL:g}) image embed diff="
+                f"{emb_err:.3g}")
+            if not same or cos_err > AGREE_COS_ATOL:
+                raise AssertionError(f"GPU and CPU runs differ ({impl}, "
+                                     f"{order}, kv_chunk_size={kv_chunk})")
 
 
-def full_captioner(dtype: str) -> Captioner:
-    cfg = ConzicConfig(dtype=dtype, param_dtype=dtype,
+def full_captioner(dtype: str, attn_impl: str = "pallas") -> Captioner:
+    cfg = ConzicConfig(dtype=dtype, param_dtype=dtype, attn_impl=attn_impl,
                        clip_len=MAIN["clip_len"],
                        clip_row_chunk=MAIN["row_chunk"],
                        kv_chunk_size=MAIN["kv_chunk"])
@@ -332,8 +462,45 @@ def check_output(cap: Captioner, res, iters: int, shape: dict) -> None:
                              "and the best list")
 
 
+def expected_launches(cap: Captioner, n_chunks: int):
+    """What the engine's structure gives for one generation of the main
+    path, as (once per generation, per Gibbs step) launch counts.
+
+    Per step: BERT (embeddings LN, 2 LN per layer, MLM head LN; one
+    attention per layer, the last one pooled at the masked slot) and, per
+    row chunk, the text tower over the cached prompt prefix (2 LN per layer
+    and the final LN; one attention per layer, the last one pooled at the
+    first EOS). Once per generation: the prompt prefix through the text
+    tower, returning K/V, and the vision tower (pre-LN, 2 LN per layer,
+    post-LN). A pooled layer and a pass that returns K/V always take the
+    masked-attention kernel; the other passes take the kernel their
+    attn_impl names."""
+    nb = cap.bert_model.config.num_layers
+    nt = cap.clip_model.config.text.num_layers
+    nv = cap.clip_model.config.vision.num_layers
+    impl = cap.cfg.attn_impl
+    once = {"layer_norm": (2 * nt + 1) + (2 * nv + 2),
+            "masked_attention": nt + nv, "attention_with_out": 0,
+            "attention_block": 0}
+    step = {"layer_norm": 2 * nb + 2 + (2 * nt + 1) * n_chunks,
+            "masked_attention": nb + nt * n_chunks, "attention_with_out": 0,
+            "attention_block": 0}
+
+    def move(counts, n, to):
+        counts["masked_attention"] -= n
+        counts[to] += n
+
+    if impl == "pallas_out":  # the suffix passes, but for the pooled last
+        move(step, (nt - 1) * n_chunks, "attention_with_out")
+    elif impl == "pallas_block":  # BERT's layers but the pooled last; vision
+        move(step, nb - 1, "attention_block")
+        move(once, nv, "attention_block")
+    return once, step
+
+
 def phase_main(iters: int, cap: Captioner, shape: dict, pixels) -> dict:
     B, L = MAIN["batch"], MAIN["sentence_len"]
+    impl = cap.cfg.attn_impl
     args = run_args(max_len=L, top_k=MAIN["top_k"], order="sequential")
     # warm-up: cuBLAS handles, the allocator's pools
     cap.run(cap.encode_images(pixels), max_iter=1,
@@ -348,34 +515,25 @@ def phase_main(iters: int, cap: Captioner, shape: dict, pixels) -> dict:
     launches = {name: fn.launches for name, fn in WRAPPERS.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = iters * L
-    say(f"main path: B={B} k={MAIN['top_k']} sentence_len={L} "
+    say(f"main path [{impl}]: B={B} k={MAIN['top_k']} sentence_len={L} "
         f"clip_len={MAIN['clip_len']} iterations={iters} "
         f"prefix P={shape['P']} suffix={shape['S_suf']} "
         f"row chunks={shape['n_chunks']}x{shape['rows']} rows")
-    say(f"main path: {res.elapsed_s:.3f} s for {steps} Gibbs steps, "
+    say(f"main path [{impl}]: {res.elapsed_s:.3f} s for {steps} Gibbs steps, "
         f"{B / res.elapsed_s:.4f} caps/s, {res.elapsed_s / steps:.5f} s "
         f"per Gibbs step, peak memory {peak_gib:.2f} GiB")
-    # what the engine's structure predicts: per step, BERT (embeddings LN,
-    # 2 per layer, MLM head LN; 1 attention per layer) and per row chunk
-    # the text tower (2 LN per layer + final LN; 1 attention per layer);
-    # once per generation the prompt prefix (text tower) and the vision
-    # tower (pre-LN, 2 per layer, post-LN)
-    nb = cap.bert_model.config.num_layers
-    nt = cap.clip_model.config.text.num_layers
-    nv = cap.clip_model.config.vision.num_layers
-    once = {"layer_norm": (2 * nt + 1) + (2 * nv + 2),
-            "masked_attention": nt + nv}
-    per_step = {"layer_norm": 2 * nb + 2 + (2 * nt + 1) * shape["n_chunks"],
-                "masked_attention": nb + nt * shape["n_chunks"]}
+    once, per_step = expected_launches(cap, shape["n_chunks"])
     want = {n: once[n] + steps * per_step[n] for n in once}
-    say(f"launches: {launches}; the engine's structure gives {want}: "
-        f"{once} once per generation and {per_step} per Gibbs step")
-    if any(n <= 0 for n in launches.values()):
-        raise AssertionError(f"a kernel never launched: {launches}")
+    say(f"launches [{impl}]: {launches}; the engine's structure gives "
+        f"{want}: {once} once per generation and {per_step} per Gibbs step")
+    if any(launches[n] <= 0 for n, route in ROUTE_OF.items()
+           if route in ("pallas", impl)):
+        raise AssertionError(f"a kernel of the {impl} path never launched: "
+                             f"{launches}")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     check_output(cap, res, iters, shape)
-    say(f"first caption: {res.gen_texts_list[-2][0]!r}")
+    say(f"first caption [{impl}]: {res.gen_texts_list[-2][0]!r}")
     return dict(launches=launches, result=res, embeds=embeds)
 
 
@@ -400,6 +558,8 @@ def phase_fp32(pixels, bf16_result, shape) -> None:
 PROFILE_GROUPS = (
     ("layer_norm kernel", ("layer_norm_kernel",)),
     ("masked_attention kernel", ("masked_attention_kernel",)),
+    ("attention_with_out kernel", ("attention_with_out_kernel",)),
+    ("attention_block kernel", ("attention_block_kernel",)),
     ("matrix products", ("nvjet", "gemm", "sm90_", "cutlass", "xmma")),
     ("concatenation", ("CatArray",)),
     ("sort (top-k)", ("sort", "Sort", "radix")),
@@ -440,8 +600,8 @@ def phase_profile(cap: Captioner, embeds) -> None:
                       if any(k in name for k in keys)), "other elementwise")
         by_group[group] = by_group.get(group, 0.0) + (end - start)
     total = sum(by_group.values())
-    say(f"profile: one iteration ({L} Gibbs steps) took {res.elapsed_s:.3f} s"
-        f" under the profiler; device busy {busy / 1e3:.3f} ms of a "
+    say(f"profile [{cap.cfg.attn_impl}]: one iteration ({L} Gibbs steps) took "
+        f"{res.elapsed_s:.3f} s under the profiler; device busy {busy / 1e3:.3f} ms of a "
         f"{window / 1e3:.3f} ms window, idle share {1 - busy / window:.4f}; "
         f"{len(spans)} kernels")
     for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
@@ -451,12 +611,54 @@ def phase_profile(cap: Captioner, embeds) -> None:
         say(f"profile kernel: {us / 1e3 / L:.3f} ms/step {name[:110]}")
 
 
+# run with a checkout as the working directory: that checkout's own
+# chip_smoke and package are the ones imported
+TREE_RUN = """
+import sys
+import numpy as np
+import torch
+import chip_smoke as cs
+reps, iters = int(sys.argv[1]), int(sys.argv[2])
+cs.build.build_all()
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+cap = cs.full_captioner("bfloat16")
+shape = cs.main_shape(cap)
+v = cap.clip_model.config.vision
+pixels = np.random.RandomState(0).rand(
+    cs.MAIN["batch"], v.image_size, v.image_size,
+    v.num_channels).astype(np.float32)
+for _ in range(reps):
+    cs.phase_main(iters, cap, shape, pixels)
+"""
+
+
+def compare_trees(trees: List[str], reps: int, iters: int) -> None:
+    for tree in trees:
+        out = subprocess.run(
+            [sys.executable, "-c", TREE_RUN, str(reps), str(iters)],
+            cwd=tree, capture_output=True, text=True, timeout=1100)
+        if out.returncode != 0:
+            raise RuntimeError(f"the main path failed in {tree}:\n"
+                               f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+        for line in out.stdout.splitlines():
+            if "caps/s" in line:
+                say(f"tree {tree}: {line}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=15,
                     help="Gibbs iterations of the main-path run")
-    ap.add_argument("--profile", action="store_true",
-                    help="also profile one iteration of the main path")
+    ap.add_argument("--profile", nargs="?", const="pallas", default=None,
+                    choices=ATTN_IMPLS, metavar="ATTN_IMPL",
+                    help="also profile one iteration of the main path under "
+                         "this attn_impl (pallas when none is named)")
+    ap.add_argument("--trees", nargs="+", metavar="DIR",
+                    help="only run the main path in each of these "
+                         "checkouts, in this order, and print its caps/s")
+    ap.add_argument("--reps", type=int, default=3,
+                    help="runs of the main path per entry of --trees")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
@@ -467,6 +669,9 @@ def main(argv=None) -> int:
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     say(f"card: {card}")
+    if args.trees:
+        compare_trees(args.trees, args.reps, args.iters)
+        return 0
     build_s = build.build_all()
     say(f"kernels built in {build_s:.2f} s from conzic_torch/csrc "
         f"({', '.join(build.SOURCES)})")
@@ -489,20 +694,31 @@ def main(argv=None) -> int:
     phase_agreement()
     say(f"phase agreement ok ({time.perf_counter() - t:.1f} s)")
 
-    t = time.perf_counter()
     v = cap.clip_model.config.vision
     pixels = np.random.RandomState(0).rand(
         MAIN["batch"], v.image_size, v.image_size,
         v.num_channels).astype(np.float32)
-    main = phase_main(args.iters, cap, shape, pixels)
-    say(f"phase main path ok ({time.perf_counter() - t:.1f} s)")
-    if args.profile:
-        phase_profile(cap, main["embeds"])
+    L, seed = MAIN["sentence_len"], shape["seed_len"]
+    main = {}
+    for impl in ATTN_IMPLS:
+        t = time.perf_counter()
+        if impl != cap.cfg.attn_impl:
+            del cap
+            torch.cuda.empty_cache()
+            cap = full_captioner("bfloat16", impl)  # the same seeded weights
+        main[impl] = phase_main(args.iters, cap, shape, pixels)
+        same = float((main[impl]["result"].best_ids[:, seed:seed + L]
+                      == main["pallas"]["result"].best_ids[:, seed:seed + L]
+                      ).mean())
+        say(f"phase main path [{impl}] ok ({time.perf_counter() - t:.1f} s); "
+            f"{same:.4f} of its best caption ids equal the pallas run's")
+        if args.profile == impl:
+            phase_profile(cap, main[impl]["embeds"])
     del cap
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
-    phase_fp32(pixels, main["result"], shape)
+    phase_fp32(pixels, main["pallas"]["result"], shape)
     say(f"phase fp32 ok ({time.perf_counter() - t:.1f} s); "
         f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -510,7 +726,10 @@ def main(argv=None) -> int:
     for name, meta in KERNELS.items():
         s = summary[name]
         kernels.append(dict(
-            name=name, **meta, launches=main["launches"][name],
+            name=name, **meta,
+            launches=main[ROUTE_OF[name]]["launches"][name],
+            launches_by_attn_impl={impl: run["launches"][name]
+                                   for impl, run in main.items()},
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
             bound_ms=s["bound_ms"], bound_by=s["bound_by"],
             library_ms=s["library_ms"]))

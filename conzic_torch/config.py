@@ -23,6 +23,13 @@ _UNPORTED = {
     "scan_layers": False,
     "mesh_data_axis": 1,
 }
+# attention routes, by the reference's names (conzic_tpu/models/layers.py
+# MultiHeadAttention): which hand-written kernel carries an attention block
+ATTN_IMPLS = ("pallas", "pallas_out", "pallas_block")
+# the reference's other values name XLA's own fusion of the attention chain
+# ("xla", its default, and "xla_bhsd") or a plain-jnp formulation
+# ("twoblock"); none has a counterpart on the card
+_UNPORTED_ATTN_IMPLS = ("xla", "xla_bhsd", "twoblock")
 
 
 @dataclasses.dataclass
@@ -44,6 +51,12 @@ class ConzicConfig:
     # pad candidate rows to this length (masked PAD columns); -1 = auto:
     # round clip_len up to a multiple of 8 when it exceeds 64; 0 = off
     clip_pad_to: int = -1
+    # "pallas": every attention through the masked-attention kernel;
+    # "pallas_out": suffix-over-prefix attention fused with its output
+    # projection; "pallas_block": full-row attention blocks as one kernel.
+    # The reference defaults to "xla", attention left to its compiler; the
+    # card has no such route, so the default here is the kernel route.
+    attn_impl: str = "pallas"
     # knobs of paths not ported yet (validate() refuses other values)
     bridge_mode: str = "table"
     prune_k: int = 0
@@ -60,6 +73,12 @@ class ConzicConfig:
                 raise NotImplementedError(
                     f"{knob}={getattr(self, knob)!r} is not ported to "
                     f"conzic_torch yet (only {supported!r})")
+        if self.attn_impl in _UNPORTED_ATTN_IMPLS:
+            raise NotImplementedError(
+                f"attn_impl={self.attn_impl!r} has no counterpart in "
+                f"conzic_torch (one of {ATTN_IMPLS})")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
         for knob in ("dtype", "param_dtype"):
             if getattr(self, knob) not in ("bfloat16", "float32"):
                 raise ValueError(f"unknown {knob} {getattr(self, knob)!r}")

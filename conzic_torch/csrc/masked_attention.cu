@@ -26,22 +26,15 @@
 // reads the shared prompt prefix K/V at image-batch width inside the kernel
 // instead of the broadcast + concat the caller does now.
 
-#include <math.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "attention_core.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kMaxKeys = 128;
-constexpr int kKeysPerLane = kMaxKeys / 32;
-constexpr float kNegInf = -1e9f;
+using conzic::kMaxKeys;
 
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return conzic::to_float(conzic::from_float<T>(v));
-}
+constexpr int kWarps = 4;
 
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -80,48 +73,13 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int d = lane; d < D; d += 32) qw[d] = conzic::to_float(q[base + d]);
     __syncwarp();
 
-    float logit[kKeysPerLane];
-    float m = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      const int j = lane + t * 32;
-      float l = -INFINITY;  // not a key: outside the softmax entirely
-      if (j < Sk) {
-        const float* kr = ks + j * ld;
-        float acc = 0.f;
-        for (int d = 0; d < D; ++d) acc += qw[d] * kr[d];
-        const bool keep = j < len && (!causal || j <= r + offset);
-        l = keep ? acc * scale : kNegInf;
-      }
-      logit[t] = l;
-      m = fmaxf(m, l);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      const int j = lane + t * 32;
-      const float p = j < Sk ? expf(logit[t] - m) : 0.f;
-      logit[t] = p;
-      sum += p;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-#pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      const int j = lane + t * 32;
-      if (j < Sk) ww[j] = round_to<T>(logit[t] / sum);
-    }
+    conzic::softmax_weights<T>(qw, ks, ld, ww, Sk, D, len,
+                               causal ? r + offset : Sk, scale, lane);
     __syncwarp();
 
-    for (int d = lane; d < D; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < Sk; ++j) acc += ww[j] * vs[j * ld + d];
-      out[base + d] = conzic::from_float<T>(acc);
-    }
+    for (int d = lane; d < D; d += 32)
+      out[base + d] =
+          conzic::from_float<T>(conzic::weighted_sum(ww, vs, ld, Sk, d));
     __syncwarp();  // qw / ww are rewritten by the warp's next row
   }
 }

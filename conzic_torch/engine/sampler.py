@@ -154,8 +154,10 @@ class Captioner:
                 eos_token_id=bpe.eos_token_id))
         dtype = _DTYPES[config.dtype]
         with torch.device(device):
-            bert = BertForMaskedLM(bert_config, dtype=dtype)
-            clip = CLIPModel(clip_config, dtype=dtype)
+            bert = BertForMaskedLM(bert_config, dtype=dtype,
+                                   attn_impl=config.attn_impl)
+            clip = CLIPModel(clip_config, dtype=dtype,
+                             attn_impl=config.attn_impl)
         random_init_([bert, clip], seed, device)
         return cls(bert, clip, wp, bpe, config, device)
 
@@ -171,10 +173,12 @@ class Captioner:
         config = config or ConzicConfig()
         device = resolve_device(device)
         dtype = _DTYPES[config.dtype]
-        bert = from_jax_params(BertForMaskedLM(bert_config, dtype=dtype),
-                               bert_params)
-        clip = from_jax_params(CLIPModel(clip_config, dtype=dtype),
-                               clip_params)
+        bert = from_jax_params(
+            BertForMaskedLM(bert_config, dtype=dtype,
+                            attn_impl=config.attn_impl), bert_params)
+        clip = from_jax_params(
+            CLIPModel(clip_config, dtype=dtype, attn_impl=config.attn_impl),
+            clip_params)
         return cls(bert, clip, wp, bpe, config, device)
 
     # ------------------------------------------------------------------
@@ -231,7 +235,7 @@ class Captioner:
         return pad if pad > L else 0
 
     def _spec(self, seed_len: int, max_len: int, top_k: int,
-              prefix_chunks) -> EngineSpec:
+              prefix_chunks, order_kind: str = "single") -> EngineSpec:
         row_chunk = self.cfg.clip_row_chunk
         budget = self.cfg.clip_token_budget
         if row_chunk and budget and self.cfg.clip_len > 48:
@@ -249,6 +253,7 @@ class Captioner:
             prefix_chunks=prefix_chunks,
             clip_row_chunk=row_chunk,
             clip_pad_to=self._clip_pad_to(),
+            order_kind=order_kind,
         )
 
     def run(self, image_embeds, *, prompt: str, max_len: int, top_k: int,
@@ -271,8 +276,9 @@ class Captioner:
                   for _ in range(n_samples)]
         init_row = self.init_ids(prompt, max_len, 1)
         seed_len = init_row.shape[1] - max_len - 1
+        kind = scheds[0].kind
         spec = self._spec(seed_len, max_len, top_k, self._prefix_chunks(
-            order, init_row, seed_len, max_len))
+            order, init_row, seed_len, max_len), kind)
         dev = self.device
         if not isinstance(image_embeds, torch.Tensor):
             image_embeds = torch.tensor(np.asarray(image_embeds, np.float32))
@@ -285,17 +291,24 @@ class Captioner:
         if n_masks != max_len:
             raise ValueError(f"prompt {prompt!r} encoded {n_masks} mask "
                              f"slots, expected {max_len}")
-        # (I, steps, B): per-row positions, sample-major blocks
-        positions = np.concatenate(
-            [np.repeat(s.positions[:, :, None], B0, axis=2) for s in scheds],
-            axis=2)
+        span_sizes = None
+        if kind == "single":
+            # (I, steps, B): per-row positions, sample-major blocks
+            positions = torch.from_numpy(np.concatenate(
+                [np.repeat(s.positions[:, :, None], B0, axis=2)
+                 for s in scheds], axis=2)).long().to(dev)
+        else:
+            # span and parallel schedules carry no randomness: one for all
+            # rows, kept on the host, where the sweep's loops read them
+            positions = scheds[0].positions
+            span_sizes = scheds[0].span_sizes
         hyper = {"alpha": alpha, "beta": beta, "temperature": temperature}
         t0 = time.perf_counter()
         with torch.inference_mode():
             gen = run_generation(
                 spec, self.bert_model, self.clip_model, self.tables, hyper,
                 image_embeds, torch.from_numpy(init).long().to(dev),
-                torch.from_numpy(positions).long().to(dev))
+                positions, span_sizes)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         elapsed = time.perf_counter() - t0

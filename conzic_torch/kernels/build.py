@@ -24,7 +24,8 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "conzic_torch"
-SOURCES: Tuple[str, ...] = ("layer_norm", "masked_attention")
+SOURCES: Tuple[str, ...] = ("layer_norm", "masked_attention",
+                            "attention_with_out", "attention_block")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -48,9 +49,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built: keyed by the
-    source, the shared header and the compiler flags."""
+    source, every shared header and the compiler flags."""
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

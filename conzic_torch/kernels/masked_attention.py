@@ -57,6 +57,57 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def check_on_device(what: str, first: torch.Tensor, tensors) -> None:
+    """Raise unless every (name, tensor) lies on the device of ``first``
+    and is contiguous."""
+    for name, t in tensors:
+        if t.device != first.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, not on "
+                             f"{first.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def check_lens(what: str, lens: Optional[torch.Tensor], N: int) -> None:
+    if lens is not None and (lens.dtype != torch.int32
+                             or lens.shape != (N,)):
+        raise ValueError(f"{what}: lens must be int32 ({N},), got "
+                         f"{lens.dtype} {tuple(lens.shape)}")
+
+
+def check_qkv(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              lens: Optional[torch.Tensor]) -> None:
+    """Raise on anything in q (N, Sq, H, D), k, v (N, Sk, H, D), lens (N,)
+    that the attention kernels do not take."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{what}: q, k, v must be 4-D (N, S, H, D)")
+    N, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if k.shape != (N, Sk, H, D) or v.shape != k.shape:
+        raise ValueError(f"{what}: shapes q={tuple(q.shape)} "
+                         f"k={tuple(k.shape)} v={tuple(v.shape)}")
+    if Sk < Sq:
+        raise ValueError(f"{what}: Sk={Sk} < Sq={Sq}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what}: types q={q.dtype} k={k.dtype} "
+                        f"v={v.dtype}; one of {_DTYPES} expected")
+    check_lens(what, lens, N)
+    tensors = [("q", q), ("k", k), ("v", v)]
+    if lens is not None:
+        tensors.append(("lens", lens))
+    check_on_device(what, q, tensors)
+
+
+def check_limits(what: str, Sk: int, D: int, max_keys: int,
+                 max_head_dim: int) -> None:
+    if Sk > max_keys:
+        raise ValueError(f"{what}: Sk={Sk} exceeds the kernel's {max_keys} "
+                         f"keys")
+    if D > max_head_dim:
+        raise ValueError(f"{what}: D={D} exceeds the kernel's "
+                         f"{max_head_dim}")
+
+
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lens: Optional[torch.Tensor] = None,
                      causal: bool = False) -> torch.Tensor:
@@ -67,37 +118,13 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return masked_attention_plain(q, k, v, lens, causal)
     if q.device.type != "cuda":
         raise ValueError(f"masked_attention: no kernel for device {q.device}")
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("masked_attention: q, k, v must be 4-D (N, S, H, D)")
+    check_qkv("masked_attention", q, k, v, lens)
     N, Sq, H, D = q.shape
     Sk = k.shape[1]
-    if k.shape != (N, Sk, H, D) or v.shape != k.shape:
-        raise ValueError(f"masked_attention: shapes q={tuple(q.shape)} "
-                         f"k={tuple(k.shape)} v={tuple(v.shape)}")
-    if Sk < Sq:
-        raise ValueError(f"masked_attention: Sk={Sk} < Sq={Sq}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"masked_attention: types q={q.dtype} k={k.dtype} "
-                        f"v={v.dtype}; one of {_DTYPES} expected")
-    tensors = [("q", q), ("k", k), ("v", v)]
-    if lens is not None:
-        if lens.dtype != torch.int32 or lens.shape != (N,):
-            raise ValueError(f"masked_attention: lens must be int32 ({N},), "
-                             f"got {lens.dtype} {tuple(lens.shape)}")
-        tensors.append(("lens", lens))
-    for name, t in tensors:
-        if t.device != q.device:
-            raise ValueError(f"masked_attention: {name} is on {t.device}, "
-                             f"q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"masked_attention: {name} must be contiguous")
     lib = _lib()
-    if Sk > lib.conzic_masked_attention_max_keys():
-        raise ValueError(f"masked_attention: Sk={Sk} exceeds the kernel's "
-                         f"{lib.conzic_masked_attention_max_keys()} keys")
-    if D > lib.conzic_masked_attention_max_head_dim():
-        raise ValueError(f"masked_attention: D={D} exceeds the kernel's "
-                         f"{lib.conzic_masked_attention_max_head_dim()}")
+    check_limits("masked_attention", Sk, D,
+                 lib.conzic_masked_attention_max_keys(),
+                 lib.conzic_masked_attention_max_head_dim())
     out = torch.empty_like(q)
     code = lib.conzic_masked_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -77,7 +77,8 @@ class BertMlmHead(nn.Module):
 
 class BertForMaskedLM(nn.Module):
     def __init__(self, config: BertConfig,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "pallas"):
         super().__init__()
         self.config, self.dtype = config, dtype
         self.embeddings = BertEmbeddings(config, dtype)
@@ -90,6 +91,7 @@ class BertForMaskedLM(nn.Module):
             eps=config.layer_norm_eps,
             pre_ln=False,
             dtype=dtype,
+            attn_impl=attn_impl,
         )
         self.mlm = BertMlmHead(config, dtype)
 

@@ -23,7 +23,7 @@ from conzic_torch.models.layers import LayerNorm, Linear, TransformerStack
 from conzic_torch.ops.attention import make_attn_mask
 
 
-def _stack(cfg, dtype: torch.dtype) -> TransformerStack:
+def _stack(cfg, dtype: torch.dtype, attn_impl: str) -> TransformerStack:
     return TransformerStack(
         num_layers=cfg.num_layers,
         num_heads=cfg.num_heads,
@@ -33,6 +33,7 @@ def _stack(cfg, dtype: torch.dtype) -> TransformerStack:
         eps=cfg.layer_norm_eps,
         pre_ln=True,
         dtype=dtype,
+        attn_impl=attn_impl,
     )
 
 
@@ -40,14 +41,15 @@ class CLIPTextTower(nn.Module):
     """Pre-LN causal transformer over BPE ids; pooled at the first EOS."""
 
     def __init__(self, config: CLIPTextConfig,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "pallas"):
         super().__init__()
         self.config, self.dtype = config, dtype
         E = config.hidden_size
         self.token_embedding = nn.Parameter(torch.empty(config.vocab_size, E))
         self.position_embedding = nn.Parameter(
             torch.empty(config.max_position_embeddings, E))
-        self.encoder = _stack(config, dtype)
+        self.encoder = _stack(config, dtype, attn_impl)
         self.final_ln = LayerNorm(E, config.layer_norm_eps)
 
     def forward(self, input_ids: torch.Tensor,
@@ -87,7 +89,8 @@ class CLIPVisionTower(nn.Module):
     """ViT with a class token; pooled output = post-LN of the class token."""
 
     def __init__(self, config: CLIPVisionConfig,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "pallas"):
         super().__init__()
         self.config, self.dtype = config, dtype
         E = config.hidden_size
@@ -96,7 +99,7 @@ class CLIPVisionTower(nn.Module):
         self.class_embedding = nn.Parameter(torch.empty(E))
         self.position_embedding = nn.Parameter(torch.empty(config.seq_len, E))
         self.pre_ln = LayerNorm(E, config.layer_norm_eps)
-        self.encoder = _stack(config, dtype)
+        self.encoder = _stack(config, dtype, attn_impl)
         self.post_ln = LayerNorm(E, config.layer_norm_eps)
 
     def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
@@ -120,11 +123,12 @@ class CLIPModel(nn.Module):
     exponentiated there as the flax model does)."""
 
     def __init__(self, config: CLIPConfig,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "pallas"):
         super().__init__()
         self.config, self.dtype = config, dtype
-        self.text_model = CLIPTextTower(config.text, dtype)
-        self.vision_model = CLIPVisionTower(config.vision, dtype)
+        self.text_model = CLIPTextTower(config.text, dtype, attn_impl)
+        self.vision_model = CLIPVisionTower(config.vision, dtype, attn_impl)
         self.text_projection = Linear(config.text.hidden_size,
                                       config.projection_dim, bias=False,
                                       dtype=dtype)

@@ -4,8 +4,8 @@ Counterpart of ``conzic_tpu/models/layers.py``: BERT (post-LayerNorm, erf
 gelu) and both CLIP towers (pre-LayerNorm, quick gelu) share one residual
 block. Parameters keep the type they were stored in and are cast to the
 module's compute ``dtype`` on use, as the flax modules do; every LayerNorm
-goes through the LayerNorm kernel and every attention through the
-masked-attention kernel.
+goes through the LayerNorm kernel and every attention through one of the
+three attention kernels, chosen by ``attn_impl``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from conzic_torch.kernels.attention_block import attention_block
+from conzic_torch.kernels.attention_with_out import attention_with_out
 from conzic_torch.kernels.layer_norm import layer_norm
 from conzic_torch.kernels.masked_attention import masked_attention
 from conzic_torch.ops.attention import AttnMask
@@ -65,13 +67,23 @@ class MultiHeadAttention(nn.Module):
     """MHA with bias on all projections. ``prefix_kv``: per-image prefix
     K/V (B, P, H, D) shared by the N = B*G rows of ``x``, broadcast and
     concatenated in front of the row's own keys. ``x_kv``: keys/values come
-    from it while queries come from ``x`` (the pooled final layer)."""
+    from it while queries come from ``x`` (the pooled final layer).
+
+    ``attn_impl`` picks the kernel, by the reference's conditions:
+    ``"pallas_block"`` runs a pass that has a residual and neither prefix
+    K/V, returned K/V nor ``x_kv`` as one attention-block kernel;
+    ``"pallas_out"`` runs a suffix-over-prefix pass with key lengths as one
+    attention-with-output-projection kernel; every other pass, and every
+    pass under ``"pallas"``, projects with ``Linear`` and goes through the
+    masked-attention kernel. All three read the same four ``Linear``s."""
 
     def __init__(self, num_heads: int, head_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "pallas"):
         super().__init__()
         E = num_heads * head_dim
         self.num_heads, self.head_dim = num_heads, head_dim
+        self.dtype, self.attn_impl = dtype, attn_impl
         self.query = Linear(E, E, dtype=dtype)
         self.key = Linear(E, E, dtype=dtype)
         self.value = Linear(E, E, dtype=dtype)
@@ -83,6 +95,17 @@ class MultiHeadAttention(nn.Module):
                 return_kv: bool = False,
                 x_kv: Optional[torch.Tensor] = None):
         H, D = self.num_heads, self.head_dim
+        dt = self.dtype
+        if (self.attn_impl == "pallas_block" and residual is not None
+                and prefix_kv is None and not return_kv and x_kv is None):
+            # the block kernel derives K/V from its single input, so the
+            # pooled final layer (x_kv) cannot take it
+            lins = (self.query, self.key, self.value, self.out)
+            params = [t for lin in lins
+                      for t in (lin.weight.to(dt), lin.bias)]
+            return attention_block(
+                x.to(dt).contiguous(), residual.to(dt).contiguous(), *params,
+                mask.lens, heads=H, causal=mask.causal)
         kv_src = x if x_kv is None else x_kv
         N, Sq = x.shape[0], x.shape[1]
         q = self.query(x).view(N, Sq, H, D)
@@ -96,6 +119,15 @@ class MultiHeadAttention(nn.Module):
             pv_b = pv.to(v.dtype)[:, None].expand(B, G, P, H, D)
             k = torch.cat([pk_b.reshape(N, P, H, D), k], dim=1)
             v = torch.cat([pv_b.reshape(N, P, H, D), v], dim=1)
+            if (self.attn_impl == "pallas_out" and mask.lens is not None
+                    and x_kv is None and not return_kv):
+                # the kernel's queries are the trailing rows of its keys,
+                # which a pooled layer's (x_kv) are not
+                y = attention_with_out(
+                    q.contiguous(), k.contiguous(), v.contiguous(),
+                    self.out.weight.to(q.dtype), self.out.bias, mask.lens,
+                    mask.causal)
+                return y if residual is None else y + residual
         out = masked_attention(q, k.contiguous(), v.contiguous(), mask.lens,
                                mask.causal)
         out = self.out(out.reshape(N, Sq, H * D))
@@ -120,13 +152,19 @@ class Mlp(nn.Module):
 
 def _pooled_mask(mask: AttnMask, query_idx: torch.Tensor, n_rows: int,
                  n_keys: int) -> AttnMask:
-    """The mask of the query rows at ``query_idx`` (N, 1) attending all
-    ``n_keys`` keys, as one non-causal query: a causal query at row i (of
-    ``n_rows``) sees keys col <= i + (n_keys - n_rows), which is folded
-    into its key length. Exact for any row, and equal to ``mask.lens`` at
-    the CLIP text tower's first-EOS row (the padding mask ends there)."""
+    """The mask of the query rows at ``query_idx`` (N, Q) attending all
+    ``n_keys`` keys, as non-causal queries. Without a causal rule any Q
+    rows keep ``mask.lens``. A single causal query at row i (of ``n_rows``)
+    sees keys col <= i + (n_keys - n_rows), which is folded into its key
+    length: exact for any row, and equal to ``mask.lens`` at the CLIP text
+    tower's first-EOS row (the padding mask ends there). Several causal
+    queries would each need a length of their own, which the kernels'
+    per-row ``lens`` cannot say; no tower asks for that."""
     if not mask.causal:
         return AttnMask(lens=mask.lens, causal=False)
+    if query_idx.shape[1] != 1:
+        raise NotImplementedError(
+            "a pooled final layer with more than one causal query row")
     reach = (query_idx[:, 0] + (n_keys - n_rows) + 1).to(torch.int32)
     lens = reach if mask.lens is None else torch.minimum(mask.lens, reach)
     return AttnMask(lens=lens.contiguous(), causal=False)
@@ -141,11 +179,13 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, num_heads: int, head_dim: int, intermediate: int,
                  act: str, eps: float, pre_ln: bool,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "pallas"):
         super().__init__()
         hidden = num_heads * head_dim
         self.pre_ln = pre_ln
-        self.attention = MultiHeadAttention(num_heads, head_dim, dtype=dtype)
+        self.attention = MultiHeadAttention(num_heads, head_dim, dtype=dtype,
+                                            attn_impl=attn_impl)
         self.mlp = Mlp(hidden, intermediate, act, dtype=dtype)
         self.ln1 = LayerNorm(hidden, eps)
         self.ln2 = LayerNorm(hidden, eps)
@@ -153,9 +193,9 @@ class TransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor, mask: AttnMask,
                 prefix_kv=None, return_kv: bool = False,
                 query_idx: Optional[torch.Tensor] = None):
-        """``query_idx`` (N, 1): compute the block's output only at that
-        row (keys/values still span every position) — the final layer
-        before a pooled or masked-slot readout. Returns (N, 1, E)."""
+        """``query_idx`` (N, Q): compute the block's output only at those
+        rows (keys/values still span every position) — the final layer
+        before a pooled or masked-slot readout. Returns (N, Q, E)."""
         if query_idx is not None:
             n_keys = x.shape[1] + (prefix_kv[0].shape[1]
                                    if prefix_kv is not None else 0)
@@ -192,19 +232,20 @@ class TransformerStack(nn.Module):
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  intermediate: int, act: str, eps: float, pre_ln: bool,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "pallas"):
         super().__init__()
         self.layers = nn.ModuleList([
             TransformerBlock(num_heads, head_dim, intermediate, act, eps,
-                             pre_ln, dtype=dtype)
+                             pre_ln, dtype=dtype, attn_impl=attn_impl)
             for _ in range(num_layers)
         ])
 
     def forward(self, x: torch.Tensor, mask: AttnMask,
                 prefix_kvs: Optional[List] = None, return_kvs: bool = False,
                 pool_idx: Optional[torch.Tensor] = None):
-        """``pool_idx`` (N, 1): the output is only read at that row, so the
-        final layer computes just it; the output becomes (N, 1, E)."""
+        """``pool_idx`` (N, Q): the output is only read at those rows, so
+        the final layer computes just them; the output becomes (N, Q, E)."""
         kvs = []
         last = len(self.layers) - 1
         for i, block in enumerate(self.layers):

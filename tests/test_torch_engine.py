@@ -4,7 +4,9 @@ Both captioners carry the same fp32 towers (tiny random ones initialised
 as ``init_mode="proper"`` does, and the ``trained_tiny/`` checkpoint) and get the same image
 embeddings and the same seeded schedule ``RandomState``. The caption ids of
 every iteration and of the best-by-cosine pick must be identical, and the
-cosines agree within 1e-4.
+cosines agree within 1e-4. The port runs under each of its ``attn_impl``
+values; the reference keeps its plain attention route, which is what its
+own ``pallas_out`` and ``pallas_block`` take on the CPU.
 """
 
 import os
@@ -22,15 +24,31 @@ import jax.numpy as jnp
 from _torch_port import TRAINED_TINY, port_captioner
 from conzic_tpu.config import ConzicConfig as JaxConfig
 from conzic_tpu.engine.sampler import Captioner as JaxCaptioner
-from conzic_torch.config import ConzicConfig
+from conzic_tpu.engine.primitives import generate_step as jax_generate_step
+from conzic_torch.config import ATTN_IMPLS, ConzicConfig
+from conzic_torch.engine.primitives import generate_step
 from conzic_torch.engine.sampler import Captioner
+from conzic_torch.models.layers import TransformerBlock
+from conzic_torch.ops.attention import AttnMask
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PAIRS = {}
+_PORTS = {}
+_WANT = {}
 
 
-def _pair(source):
-    """(jax captioner, port captioner) on fp32 towers, built once."""
+def _pair(source, attn_impl="pallas"):
+    """(jax captioner, port captioner under ``attn_impl``) on the same fp32
+    towers, each built once."""
+    jc, pc = _base_pair(source)
+    if attn_impl != "pallas" and (source, attn_impl) not in _PORTS:
+        bpe_dir = TRAINED_TINY if source == "trained_tiny" else None
+        _PORTS[source, attn_impl] = port_captioner(
+            jc, bpe_dir=bpe_dir, dtype="float32", attn_impl=attn_impl)
+    return jc, _PORTS.get((source, attn_impl), pc)
+
+
+def _base_pair(source):
     if source not in _PAIRS:
         cfg = JaxConfig(dtype="float32")
         if source == "random":
@@ -52,10 +70,11 @@ def _pair(source):
     return _PAIRS[source]
 
 
-def _assert_same_run(source, cfg_kw, embeds, **run_kw):
+def _assert_same_run(source, cfg_kw, embeds, attn_impl="pallas", **run_kw):
     """Run both captioners with the config fields ``cfg_kw`` set on both
-    (both read them at run time), then restore them."""
-    caps = _pair(source)
+    (both read them at run time), then restore them. The reference's result
+    is kept: it is the same for every ``attn_impl`` of the port."""
+    caps = _pair(source, attn_impl)
     saved = [{k: getattr(c.cfg, k) for k in cfg_kw} for c in caps]
     for c in caps:
         for k, v in cfg_kw.items():
@@ -64,8 +83,12 @@ def _assert_same_run(source, cfg_kw, embeds, **run_kw):
         jc, pc = caps
         args = dict(prompt="Image of a", temperature=0.1, alpha=0.02,
                     beta=2.0, **run_kw)
-        want = jc.run(jnp.asarray(embeds), rng=np.random.RandomState(7),
-                      **args)
+        key = repr((source, sorted(cfg_kw.items()), embeds.shape,
+                    sorted(run_kw.items())))
+        if key not in _WANT:
+            _WANT[key] = jc.run(jnp.asarray(embeds),
+                                rng=np.random.RandomState(7), **args)
+        want = _WANT[key]
         got = pc.run(embeds, rng=np.random.RandomState(7), **args)
     finally:
         for c, old in zip(caps, saved):
@@ -120,6 +143,88 @@ def test_trained_tiny_run_matches_reference(order):
                            max_len=6, top_k=16, max_iter=2, order=order,
                            n_samples=2)
     assert len(got.gen_texts_list) == 3  # two iterations, then the best
+
+
+# span: an odd sentence_len leaves a last span of one slot; parallel: the
+# candidates come from the iteration-start rows. kv_chunk_size=0 encodes
+# every candidate row in full, so pallas_block takes the text rows too
+@pytest.mark.parametrize("kv_chunk_size", [16, 0])
+@pytest.mark.parametrize("attn_impl", ATTN_IMPLS)
+@pytest.mark.parametrize("order", ["span", "parallel"])
+def test_span_and_parallel_match_reference(order, attn_impl, kv_chunk_size):
+    _assert_same_run("random", dict(kv_chunk_size=kv_chunk_size),
+                     _embeds("random", 2), attn_impl=attn_impl, max_len=5,
+                     top_k=12, max_iter=2, order=order, n_samples=2)
+
+
+@pytest.mark.parametrize("attn_impl", ["pallas_out", "pallas_block"])
+@pytest.mark.parametrize("order,kv_chunk_size", [
+    ("sequential", 16), ("sequential", 0), ("shuffle", 16),
+])
+def test_single_orders_match_reference_under_attn_impl(order, kv_chunk_size,
+                                                       attn_impl):
+    _assert_same_run("random", dict(kv_chunk_size=kv_chunk_size),
+                     _embeds("random", 2), attn_impl=attn_impl, max_len=5,
+                     top_k=12, max_iter=2, order=order)
+
+
+@pytest.mark.parametrize("order,attn_impl", [
+    ("span", "pallas"), ("span", "pallas_block"), ("parallel", "pallas_out"),
+])
+def test_trained_tiny_span_and_parallel_match_reference(order, attn_impl):
+    _assert_same_run("trained_tiny", {}, _embeds("trained_tiny", 3),
+                     attn_impl=attn_impl, max_len=6, top_k=16, max_iter=2,
+                     order=order)
+
+
+def _step_logits():
+    return np.random.RandomState(5).randn(6, 4, 50).astype(np.float32)
+
+
+@pytest.mark.parametrize("temperature", [None, 0.5])
+def test_generate_step_greedy_matches_reference(temperature):
+    out = _step_logits()
+    want = jax_generate_step(jnp.asarray(out), 2, temperature=temperature)
+    got = generate_step(torch.from_numpy(out), 2, temperature=temperature)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_generate_step_top_k_is_seeded_and_stays_in_the_top_k():
+    out = torch.from_numpy(_step_logits())
+    top = torch.topk(out[:, 1], 5, dim=-1).indices
+    draws = [generate_step(out, 1, torch.Generator().manual_seed(s),
+                           temperature=0.7, top_k=5, sample=True)
+             for s in (11, 11, 12, 13, 14)]
+    np.testing.assert_array_equal(draws[0].numpy(), draws[1].numpy())
+    assert any((d != draws[0]).any() for d in draws[2:])
+    for d in draws:
+        assert (top == d[:, None].long()).any(dim=1).all()
+    full = generate_step(out, 1, torch.Generator().manual_seed(3),
+                         sample=True)
+    assert full.shape == (6,) and ((0 <= full) & (full < 50)).all()
+
+
+@pytest.mark.parametrize("kw", [dict(top_k=3), dict(sample=True)])
+def test_generate_step_sampling_needs_a_generator(kw):
+    with pytest.raises(ValueError, match="generator"):
+        generate_step(torch.from_numpy(_step_logits()), 0, **kw)
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "xla_bhsd", "twoblock"])
+def test_attn_impls_without_a_counterpart_raise(attn_impl):
+    with pytest.raises(NotImplementedError, match="attn_impl"):
+        ConzicConfig(attn_impl=attn_impl).validate()
+    with pytest.raises(ValueError, match="attn_impl"):
+        ConzicConfig(attn_impl=attn_impl + "?").validate()
+
+
+def test_pooled_final_layer_refuses_several_causal_rows():
+    block = TransformerBlock(2, 4, 16, "quick_gelu", 1e-5, pre_ln=True)
+    x = torch.zeros(2, 5, 8)
+    with pytest.raises(NotImplementedError, match="causal"):
+        block(x, AttnMask(causal=True),
+              query_idx=torch.tensor([[1, 2], [0, 3]]))
 
 
 def test_entry_points_do_not_fall_back_to_the_cpu():

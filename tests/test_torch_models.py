@@ -3,6 +3,9 @@
 Parameters go over with ``conzic_torch.models.convert.from_jax_params``.
 Both tiny random towers and the ``trained_tiny/`` checkpoint are compared,
 at fp32 on the CPU with tolerance 2e-4, the bar of tests/test_model_parity.py.
+The port's towers are built under each ``attn_impl``; the JAX towers keep
+their plain attention route, which is what their own ``pallas_out`` and
+``pallas_block`` take on the CPU.
 """
 
 import numpy as np
@@ -147,6 +150,68 @@ def test_clip_encode_image_and_similarity(towers):
     np.testing.assert_allclose(timg.numpy(), img, **TOL)
     np.testing.assert_allclose(tprobs.numpy(), np.asarray(probs), **TOL)
     np.testing.assert_allclose(tcos.numpy(), np.asarray(cos), **TOL)
+
+
+@pytest.fixture(scope="module", params=["pallas_out", "pallas_block"])
+def fused_towers(request, towers):
+    """``towers`` with the port's two rebuilt under a fused attn_impl on
+    the same parameters."""
+    jb, bp, _, jc, cp, _ = towers
+    tb = from_jax_params(BertForMaskedLM(
+        port_bert_config(jb.config), attn_impl=request.param), np_tree(bp))
+    tc = from_jax_params(CLIPModel(
+        port_clip_config(jc.config), attn_impl=request.param), np_tree(cp))
+    return jb, bp, tb.eval(), jc, cp, tc.eval()
+
+
+def test_fused_attn_impl_bert_logits(fused_towers):
+    test_bert_logits(fused_towers)
+
+
+def test_fused_attn_impl_clip_text(fused_towers):
+    test_clip_encode_text_and_shared_prefix(fused_towers)
+    test_clip_prefix_kvs_then_suffix_matches_jax(fused_towers)
+
+
+def test_fused_attn_impl_clip_image(fused_towers):
+    test_clip_encode_image_and_similarity(fused_towers)
+
+
+def _check_pooled_hidden_at_several_rows(towers):
+    jb, bp, tb, *_ = towers
+    rng = np.random.RandomState(5)
+    ids = _ids(rng, jb.config.vocab_size, (3, 10))
+    pool = np.array([[2, 3, 4], [5, 6, 9], [0, 1, 7]], np.int32)
+    h = _apply(jb, bp, ids, pool_idx=jnp.asarray(pool),
+               method=JaxBert.hidden)
+    logits = _apply(jb, bp, h, method=JaxBert.lm_head)
+    tids, tpool = torch.from_numpy(ids).long(), torch.from_numpy(pool).long()
+    with torch.no_grad():
+        th = tb.hidden(tids, pool_idx=tpool)
+        tl = tb.lm_head(th)
+    assert th.shape == (3, 3, jb.config.hidden_size)
+    np.testing.assert_allclose(th.numpy(), np.asarray(h), **TOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(logits), **TOL)
+    # with a padded row the pooled rows are those of the full encode: the
+    # reference's own pooled path drops a padding mask on the CPU, so its
+    # full encode, gathered, is the yardstick
+    mask = np.ones_like(ids)
+    mask[2, 8:] = 0
+    full = np.asarray(_apply(jb, bp, ids, mask, method=JaxBert.hidden))
+    with torch.no_grad():
+        th = tb.hidden(tids, torch.from_numpy(mask), pool_idx=tpool)
+    np.testing.assert_allclose(
+        th.numpy(), np.take_along_axis(full, pool[:, :, None], axis=1), **TOL)
+
+
+def test_bert_pooled_hidden_at_several_rows(towers):
+    """The final layer computed at Q > 1 rows, as the span and parallel
+    orders read it, with a padded row."""
+    _check_pooled_hidden_at_several_rows(towers)
+
+
+def test_fused_attn_impl_bert_pooled_hidden_at_several_rows(fused_towers):
+    _check_pooled_hidden_at_several_rows(fused_towers)
 
 
 def test_from_jax_params_refuses_a_wrong_tree(towers):
