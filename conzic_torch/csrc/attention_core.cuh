@@ -20,12 +20,19 @@ __device__ __forceinline__ float round_to(float v) {
   return to_float(from_float<T>(v));
 }
 
+// The masking rule of every attention kernel of the port. Key j is kept iff
+// j < len and j <= reach; a kept logit is the dot product times scale, a
+// masked one is REPLACED by -1e9.
+__device__ __forceinline__ float masked_logit(float dot, int j, int len,
+                                              int reach, float scale) {
+  return (j < len && j <= reach) ? dot * scale : kNegInf;
+}
+
 // One warp, one query row of one head. qrow: D floats; ks: that head's keys
-// as fp32 rows of stride ld (all in shared memory). Key j is kept iff
-// j < len and j <= reach; a masked logit is REPLACED by -1e9; logits and
-// softmax in fp32. Writes the Sk weights, rounded to the value type T, to
-// ww[0..Sk). The caller orders its own writes of qrow before the call and
-// its reads of ww after it (__syncwarp).
+// as fp32 rows of stride ld (all in shared memory). Logits by masked_logit;
+// logits and softmax in fp32. Writes the Sk weights, rounded to the value
+// type T, to ww[0..Sk). The caller orders its own writes of qrow before the
+// call and its reads of ww after it (__syncwarp).
 template <typename T>
 __device__ __forceinline__ void softmax_weights(const float* qrow,
                                                 const float* ks, int ld,
@@ -42,8 +49,7 @@ __device__ __forceinline__ void softmax_weights(const float* qrow,
       const float* kr = ks + j * ld;
       float acc = 0.f;
       for (int d = 0; d < D; ++d) acc += qrow[d] * kr[d];
-      const bool keep = j < len && j <= reach;
-      l = keep ? acc * scale : kNegInf;
+      l = masked_logit(acc, j, len, reach, scale);
     }
     logit[t] = l;
     m = fmaxf(m, l);

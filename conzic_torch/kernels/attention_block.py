@@ -1,5 +1,5 @@
-"""A whole attention block in one launch: the CUDA kernel
-``csrc/attention_block.cu`` and its plain version.
+"""A whole attention block in one call: the CUDA kernels of
+``csrc/attention_block.cu`` and their plain version.
 
 Counterpart of ``fused_attention_block`` in
 ``conzic_tpu/ops/fused_attn_block.py``, the kernel of
@@ -7,8 +7,11 @@ Counterpart of ``fused_attention_block`` in
 q/k/v projections inside. One difference of layout: the four weights are
 those of PyTorch ``Linear``s, (E_out, E_in), the transpose of the flax
 kernels, and are read as they lie. A tensor on the CPU takes
-:func:`attention_block_plain`, a tensor on a CUDA device takes the kernel,
-and anything the kernel does not take raises.
+:func:`attention_block_plain`, a tensor on a CUDA device takes a kernel,
+and anything the kernels do not take raises. Which kernel is the exported C
+function's choice, by type and shape alone: bf16 with the head width and E
+multiples of 16 runs on the tensor cores (two launches behind one call, one
+count of ``launches``), fp32 and other widths in exact scalar fp32.
 """
 
 from __future__ import annotations
@@ -110,7 +113,7 @@ def attention_block(x: torch.Tensor, residual: torch.Tensor,
     check_limits(what, S, E // heads, lib.conzic_attention_block_max_keys(),
                  lib.conzic_attention_block_max_head_dim())
     out = torch.empty_like(x)
-    ctx = torch.empty_like(x)  # the kernel's scratch: one (S, E) slice a row
+    ctx = torch.empty_like(x)  # the kernels' scratch: the context, (N, S, E)
     D = E // heads
     code = lib.conzic_attention_block(
         x.data_ptr(), residual.data_ptr(), wq.data_ptr(), bq.data_ptr(),

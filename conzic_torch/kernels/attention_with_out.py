@@ -6,8 +6,10 @@ Counterpart of ``fused_attention_with_out`` / ``_kernel_with_out`` in
 ``attn_impl="pallas_out"``. One difference of layout: ``wo`` is the weight
 of a PyTorch ``Linear``, (E, H * D), the transpose of the flax (H * D, E)
 kernel, and is read as it lies. A tensor on the CPU takes
-:func:`attention_with_out_plain`, a tensor on a CUDA device takes the
-kernel, and anything the kernel does not take raises.
+:func:`attention_with_out_plain`, a tensor on a CUDA device takes a kernel,
+and anything the kernels do not take raises. Which kernel is the exported C
+function's choice, by type and shape alone: bf16 with D and E multiples of
+16 runs on the tensor cores, fp32 and other widths in exact scalar fp32.
 """
 
 from __future__ import annotations

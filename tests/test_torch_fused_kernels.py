@@ -47,6 +47,14 @@ def _t(a, dtype=torch.float32):
     return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
 
 
+def _edge_lens(rng, N, hi):
+    """Key lengths from 0 (no key kept: a uniform softmax over all keys,
+    not NaN) to ``hi``, both ends present."""
+    lens = rng.randint(0, hi + 1, size=N).astype(np.int32)
+    lens[0], lens[-1] = 0, hi
+    return lens
+
+
 def _with_out_inputs(rng, N, Sq, Sk, H, D, E, with_lens):
     q = rng.randn(N, Sq, H, D).astype(np.float32)
     k = rng.randn(N, Sk, H, D).astype(np.float32)
@@ -54,7 +62,9 @@ def _with_out_inputs(rng, N, Sq, Sk, H, D, E, with_lens):
     wo = (rng.randn(H * D, E) * 0.1).astype(np.float32)  # the flax layout
     bo = rng.randn(E).astype(np.float32)
     lens = None
-    if with_lens:
+    if with_lens == "edge":
+        lens = _edge_lens(rng, N, Sk)
+    elif with_lens:
         lens = rng.randint(Sk - Sq + 1, Sk + 1, size=N).astype(np.int32)
     return q, k, v, wo, bo, lens
 
@@ -73,16 +83,40 @@ def _with_out_both(q, k, v, wo, bo, lens, causal, dtype=torch.float32):
             attention_with_out(*args).float().numpy())
 
 
-# N = 7 is not a multiple of the reference's group of 3; Sq < Sk is the
-# suffix-over-prefix shape the engine gives the kernel
-@pytest.mark.parametrize("with_lens", [True, False])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("Sq,Sk", [(5, 8), (6, 6)])
-def test_attention_with_out_matches_pallas(Sq, Sk, causal, with_lens):
+# (N, Sq, Sk, H, D, E, causal, with_lens). N = 7 is not a multiple of the
+# reference's group of 3; Sq < Sk is the suffix-over-prefix shape the engine
+# gives the kernel. The first eight are at one small width; the others are
+# the ragged shapes the CUDA kernel is held to on the card by chip_smoke.py
+# (edge_cases), so that the plain version it is compared with there is
+# itself pinned to the Pallas kernel here: key lengths of 0 and Sk, a row
+# count that no row group divides, Sk = Sq, one query row, more than one
+# 16-row tile, and head widths on both sides of the tensor-core kernel's
+# condition (D and E multiples of 16).
+WITH_OUT_CASES = [
+    pytest.param((7, Sq, Sk, 2, 8, 16, causal, with_lens),
+                 id=f"{Sq}-{Sk}-{causal}-{with_lens}")
+    for with_lens in (True, False) for causal in (True, False)
+    for Sq, Sk in ((5, 8), (6, 6))
+] + [
+    pytest.param((7, 16, 24, 2, 16, 32, True, "edge"), id="lens-0-to-Sk"),
+    pytest.param((6, 16, 24, 2, 16, 32, False, "edge"),
+                 id="not-causal-lens-0-to-Sk"),
+    pytest.param((5, 16, 16, 2, 16, 32, True, False), id="Sk-eq-Sq"),
+    pytest.param((9, 1, 24, 2, 16, 32, False, "edge"), id="Sq-1"),
+    pytest.param((20, 8, 12, 2, 16, 32, True, "edge"), id="Sq-8-Sk-12"),
+    pytest.param((3, 40, 77, 2, 16, 32, True, "edge"), id="Sq-40-Sk-77"),
+    pytest.param((5, 16, 24, 2, 24, 40, True, "edge"), id="D-24"),
+]
+
+
+@pytest.mark.parametrize("case", WITH_OUT_CASES)
+def test_attention_with_out_matches_pallas(case):
+    N, Sq, Sk, H, D, E, causal, with_lens = case
     rng = np.random.RandomState(Sq * 10 + Sk + causal)
     ref, plain, wrapped = _with_out_both(
-        *_with_out_inputs(rng, 7, Sq, Sk, 2, 8, 16, with_lens), causal)
-    assert ref.shape == (7, Sq, 16)
+        *_with_out_inputs(rng, N, Sq, Sk, H, D, E, with_lens), causal)
+    assert ref.shape == (N, Sq, E)
+    assert np.isfinite(plain).all()
     np.testing.assert_allclose(plain, ref, **WITH_OUT_TOL)
     np.testing.assert_allclose(wrapped, ref, **WITH_OUT_TOL)
 
@@ -112,7 +146,9 @@ def _block_inputs(rng, N, S, H, D, with_lens):
     ws = [(rng.randn(E, E) * 0.05).astype(np.float32) for _ in range(4)]
     bs = [(rng.randn(E) * 0.1).astype(np.float32) for _ in range(4)]
     lens = None
-    if with_lens:
+    if with_lens == "edge":
+        lens = _edge_lens(rng, N, S)
+    elif with_lens:
         lens = rng.randint(1, S + 1, size=N).astype(np.int32)
         lens[0] = S
     return x, res, ws, bs, lens
@@ -136,13 +172,30 @@ def _block_both(x, res, ws, bs, lens, heads, causal, dtype=torch.float32):
             attention_block(*args, **kw).float().numpy())
 
 
-# N = 5 is not a multiple of the reference's group of 4
-@pytest.mark.parametrize("with_lens", [True, False])
-@pytest.mark.parametrize("causal", [True, False])
-def test_attention_block_matches_pallas(causal, with_lens):
-    rng = np.random.RandomState(2 + causal + 2 * with_lens)
+# (N, S, H, D, causal, with_lens). N = 5 is not a multiple of the
+# reference's group of 4. The first four are at one small shape; the others
+# are the ragged shapes of chip_smoke.py's edge_cases (see WITH_OUT_CASES).
+BLOCK_CASES = [
+    pytest.param((5, 10, 4, 16, causal, with_lens),
+                 id=f"{causal}-{with_lens}")
+    for with_lens in (True, False) for causal in (True, False)
+] + [
+    pytest.param((7, 15, 4, 16, False, "edge"), id="lens-0-to-S"),
+    pytest.param((7, 15, 4, 16, True, "edge"), id="causal-lens-0-to-S"),
+    pytest.param((5, 1, 2, 16, False, False), id="S-1"),
+    pytest.param((5, 17, 4, 16, True, "edge"), id="S-17-causal"),
+    pytest.param((5, 17, 4, 16, False, False), id="S-17"),
+    pytest.param((5, 15, 4, 24, False, "edge"), id="D-24"),
+]
+
+
+@pytest.mark.parametrize("case", BLOCK_CASES)
+def test_attention_block_matches_pallas(case):
+    N, S, H, D, causal, with_lens = case
+    rng = np.random.RandomState(2 + causal + 2 * bool(with_lens))
     ref, plain, wrapped = _block_both(
-        *_block_inputs(rng, 5, 10, 4, 16, with_lens), heads=4, causal=causal)
+        *_block_inputs(rng, N, S, H, D, with_lens), heads=H, causal=causal)
+    assert np.isfinite(plain).all()
     np.testing.assert_allclose(plain, ref, **BLOCK_TOL)
     np.testing.assert_allclose(wrapped, ref, **BLOCK_TOL)
 
