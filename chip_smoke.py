@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive ``conzic_torch`` on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--iters 15] [--profile [ATTN_IMPL]]
-    python3 chip_smoke.py --trees DIR [DIR ...] [--reps 3]
+    python3 chip_smoke.py [--iters 15] [--profile [ATTN_IMPL ...]]
+    python3 chip_smoke.py --trees DIR [DIR ...] [--reps 3] [--kernels]
 
 Phases, each printing its own lines:
 
@@ -12,8 +12,8 @@ Phases, each printing its own lines:
    in bf16 and fp32, at the shapes free captioning gives it, with the
    kernel's time beside the plain version's, a PyTorch library call's and
    the bound (bytes over 3.35 TB/s or operations over the peak rate); then
-   the two fused kernels at ragged shapes (``edge_cases``), checked and not
-   timed;
+   the three attention kernels at ragged shapes (``edge_cases``), checked
+   and not timed;
 3. agreement: a tiny fp32 captioner run through the kernels and again with
    every tensor on the CPU must give identical caption ids, under every
    ``attn_impl`` and in the sequential, shuffle, span and parallel orders;
@@ -34,8 +34,11 @@ script exits non-zero without them. It imports nothing of JAX.
 only the main path, under the default ``attn_impl``, in each checkout
 named (``.`` is this one; unpack another commit with ``git archive``), in
 the order given, one process per entry, ``--reps`` runs each, and prints
-each run's caps/s. Name the trees in turns (parent, change, change,
-parent): the host's load moves the number from run to run.
+each run's caps/s; with ``--kernels`` it times each tree's kernels at the
+main-path shapes instead, as phase 2 does, and prints a digest of the two
+fused kernels' outputs on seeded inputs that every tree makes alike. Name the trees in turns
+(parent, change, change, parent): the host's load moves the number from run
+to run.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ import json
 import subprocess
 import sys
 import time
-from typing import Callable, List
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
@@ -70,6 +73,7 @@ from conzic_torch.kernels.masked_attention import (
     masked_attention,
     masked_attention_plain,
 )
+from conzic_torch.kernels.timing import time_ms
 from conzic_torch.models.configs import BertConfig, CLIPConfig
 from conzic_torch.ops.attention import attention_keep_mask
 from conzic_torch.text.vocab import make_fullsize_wordpiece_vocab
@@ -133,31 +137,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn: Callable[[], object], reps: int) -> float:
-    """Mean device time of one call of ``fn``: ``reps`` calls are captured
-    in one CUDA graph and the graph's replay is timed with CUDA events, so
-    the host's launch overhead is left out of the number."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(3):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (3 * reps)
-
-
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -173,6 +152,9 @@ class Case:
     library_fn: Callable[[], torch.Tensor]  # timed only, never checked
     n_bytes: int  # each input read once, each output written once
     n_ops: int  # what these inputs need
+    # further yardsticks, timed and printed beside library_ms
+    also: Dict[str, Callable[[], torch.Tensor]] = dataclasses.field(
+        default_factory=dict)
 
     def bound(self):
         t_bytes = self.n_bytes / HBM_BYTES_PER_S * 1e3
@@ -197,31 +179,6 @@ def ln_case(label, rows, feat, eps, dtype, gen) -> Case:
         n_ops=8 * rows * feat)
 
 
-def attn_case(label, N, Sq, Sk, H, D, causal, with_lens, dtype, gen) -> Case:
-    def draw(S):
-        return torch.randn(N, S, H, D, device=DEVICE, generator=gen).to(dtype)
-
-    q, k, v = draw(Sq), draw(Sk), draw(Sk)
-    lens = None
-    if with_lens:  # every row keeps its whole causal reach of the prefix
-        lens = torch.randint(Sk - Sq + 1, Sk + 1, (N,), device=DEVICE,
-                             generator=gen, dtype=torch.int32)
-    keep = attention_keep_mask(lens, N, Sq, Sk, causal, q.device)
-    kept = int(keep.sum().item()) * H
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    mask = keep if (causal or with_lens) else None
-    elem = q.element_size()
-    return Case(
-        "masked_attention", label, dtype,
-        lambda: masked_attention(q, k, v, lens, causal),
-        lambda: masked_attention_plain(q, k, v, lens, causal),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                               scale=D ** -0.5),
-        n_bytes=(2 * N * Sq + 2 * N * Sk) * H * D * elem
-        + (4 * N if with_lens else 0),
-        n_ops=4 * kept * D)
-
-
 def _sdpa(q, k, v, mask, D):
     """(N, S, H, D) tensors through the library's attention."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -230,17 +187,65 @@ def _sdpa(q, k, v, mask, D):
     return out.transpose(1, 2)
 
 
-def draw_lens(mode, N, lo, hi, gen):
+def draw_lens(mode, N, lo, hi, gen, short=8):
     """Key lengths of a case: None; "reach", every row keeps its whole
-    causal reach (lo .. hi); or "edge", anything from 0 to hi with both
-    ends present (a row of length 0 keeps no key at all)."""
+    causal reach (lo .. hi); "edge", anything from 0 to hi with both ends
+    present (a row of length 0 keeps no key at all); "short", 0 to
+    ``short`` (inside a prefix of that length) with both ends present."""
     if mode is None:
         return None
-    lens = torch.randint(lo if mode == "reach" else 0, hi + 1, (N,),
+    top = short if mode == "short" else hi
+    lens = torch.randint(lo if mode == "reach" else 0, top + 1, (N,),
                          device=DEVICE, generator=gen, dtype=torch.int32)
-    if mode == "edge":
-        lens[0], lens[-1] = 0, hi
+    if mode != "reach":
+        lens[0], lens[-1] = 0, top
     return lens
+
+
+def attn_case(label, N, Sq, Sk, H, D, causal, lens_mode, dtype, gen, P=0,
+              G=1) -> Case:
+    """Masked attention over Sk keys. With P > 0 the prefix form: the first
+    P keys of row n are the (N // G, P, H, D) prefix of image n // G, read
+    once per image (n_bytes counts them so), and the library yardstick is
+    the broadcast and concatenation the caller would otherwise make, then
+    the library's attention; "sdpa_ms" times that attention alone on the
+    concatenated keys."""
+    def draw(*shape):
+        return torch.randn(*shape, device=DEVICE, generator=gen).to(dtype)
+
+    Ss, B = Sk - P, N // G
+    q, k, v = draw(N, Sq, H, D), draw(N, Ss, H, D), draw(N, Ss, H, D)
+    prefix = (draw(B, P, H, D), draw(B, P, H, D)) if P else None
+    lens = draw_lens(lens_mode, N, Sk - Sq + 1, Sk, gen)
+    keep = attention_keep_mask(lens, N, Sq, Sk, causal, q.device)
+    kept = int(keep.sum().item()) * H
+    mask = keep if (causal or lens is not None) else None
+    # the library's (N, H, S, D) layout, made once outside the timing
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def sdpa(k_all, v_all):
+        return F.scaled_dot_product_attention(qt, k_all, v_all,
+                                              attn_mask=mask, scale=D ** -0.5)
+
+    pkt, pvt = (t.transpose(1, 2).contiguous() for t in prefix or (q, q))
+
+    def cat(p, own):  # each image's prefix before its rows' keys
+        if not P:
+            return own
+        p = p[:, None].expand(B, G, H, P, D).reshape(N, H, P, D)
+        return torch.cat([p, own], dim=2)
+
+    k_all, v_all = cat(pkt, kt), cat(pvt, vt)
+    also = {"sdpa_ms": lambda: sdpa(k_all, v_all)} if P else {}
+    elem = q.element_size()
+    return Case(
+        "masked_attention", label, dtype,
+        lambda: masked_attention(q, k, v, lens, causal, prefix),
+        lambda: masked_attention_plain(q, k, v, lens, causal, prefix),
+        lambda: sdpa(cat(pkt, kt), cat(pvt, vt)),
+        n_bytes=(2 * N * Sq + 2 * N * Ss + 2 * B * P) * H * D * elem
+        + (4 * N if lens is not None else 0),
+        n_ops=4 * kept * D, also=also)
 
 
 def with_out_case(label, N, Sq, Sk, H, D, E, dtype, gen, causal=True,
@@ -315,16 +320,17 @@ def main_path_cases(shape, dtype, gen) -> List[Case]:
         ln_case("text pooled rows", kc_rows, 512, 1e-5, dtype, gen),
         ln_case("bert rows", B * L, 768, 1e-12, dtype, gen),
         ln_case("vision rows", B * 50, 768, 1e-5, dtype, gen),
-        attn_case("text suffix chunk", kc_rows, S, P + S, 8, 64, True, True,
-                  dtype, gen),
-        attn_case("text pooled (Sq=1)", kc_rows, 1, P + S, 8, 64, False, True,
-                  dtype, gen),
-        attn_case("text prompt prefix", B, P, P, 8, 64, True, False, dtype,
+        attn_case("text suffix chunk", kc_rows, S, P + S, 8, 64, True,
+                  "reach", dtype, gen, P=P, G=kc_rows // B),
+        attn_case("text pooled (Sq=1)", kc_rows, 1, P + S, 8, 64, False,
+                  "reach", dtype, gen, P=P, G=kc_rows // B),
+        attn_case("text prompt prefix", B, P, P, 8, 64, True, None, dtype,
                   gen),
-        attn_case("bert full rows", B, L, L, 12, 64, False, True, dtype, gen),
-        attn_case("bert pooled (Sq=1)", B, 1, L, 12, 64, False, True, dtype,
+        attn_case("bert full rows", B, L, L, 12, 64, False, "reach", dtype,
                   gen),
-        attn_case("vision", B, 50, 50, 12, 64, False, False, dtype, gen),
+        attn_case("bert pooled (Sq=1)", B, 1, L, 12, 64, False, "reach",
+                  dtype, gen),
+        attn_case("vision", B, 50, 50, 12, 64, False, None, dtype, gen),
         with_out_case("text suffix chunk", kc_rows, S, P + S, 8, 64, 512,
                       dtype, gen),
         block_case("bert rows", B, L, 768, 12, False, None, dtype, gen),
@@ -335,15 +341,41 @@ def main_path_cases(shape, dtype, gen) -> List[Case]:
 
 
 def edge_cases(dtype, gen) -> List[Case]:
-    """Ragged shapes of the two fused kernels, checked against the plain
-    versions and not timed: a row count that the kernels' row groups do not
-    divide, key lengths from 0 (no key kept: a uniform softmax) to all,
-    Sk = Sq, one query row, sequences of 1, 17 and 100 rows (one, two and
+    """Ragged shapes of the three attention kernels, checked against the
+    plain versions and not timed: a row count that the kernels' row groups
+    do not divide, key lengths from 0 (no key kept: a uniform softmax) to
+    all, Sk = Sq, one query row, sequences of 1, 17, 50 and 100 rows (one to
     seven 16-row tiles), a group of several rows n whose K and V fit two
     buffers (the main shape's fit one), causal and not, and head widths on
     both sides of the tensor-core kernels' condition (D and E multiples of
-    16)."""
+    16). Masked attention also in its prefix form: rows that change image
+    inside a block's range, an image per row (G = 1), heads split over
+    several blocks, key lengths inside the prefix."""
     return [
+        attn_case("prefix, N=801 G=3 (images change mid-block)", 801, 16, 24,
+                  8, 64, True, "edge", dtype, gen, P=8, G=3),
+        attn_case("prefix, G=1", 150, 16, 24, 8, 64, True, "edge", dtype,
+                  gen, P=8, G=1),
+        attn_case("prefix, N=12 G=3 (heads split over blocks)", 12, 16, 24,
+                  8, 64, True, "edge", dtype, gen, P=8, G=3),
+        attn_case("prefix, lens 0..P", 20, 16, 24, 8, 64, True, "short",
+                  dtype, gen, P=8, G=4),
+        attn_case("prefix, Sq=1", 40, 1, 24, 8, 64, False, "edge", dtype,
+                  gen, P=8, G=5),
+        attn_case("prefix, P=20 Sq=Ss=30 (four key tiles)", 6, 30, 50, 4,
+                  64, True, "edge", dtype, gen, P=20, G=2),
+        attn_case("Sk=Sq, no prefix", 9, 16, 16, 8, 64, True, None, dtype,
+                  gen),
+        attn_case("S=50, lens 0..S", 3, 50, 50, 4, 64, False, "edge", dtype,
+                  gen),
+        attn_case("S=100 causal", 2, 100, 100, 2, 64, True, "edge", dtype,
+                  gen),
+        attn_case("prefix, D=16 (tensor-core side)", 6, 16, 20, 2, 16, True,
+                  "edge", dtype, gen, P=4, G=3),
+        attn_case("prefix, D=24 (scalar side)", 6, 16, 20, 2, 24, True,
+                  "edge", dtype, gen, P=4, G=3),
+        attn_case("D=18 (scalar, a value a load)", 5, 5, 9, 2, 18, True,
+                  "edge", dtype, gen),
         with_out_case("N=7, lens 0..Sk", 7, 16, 24, 8, 64, 512, dtype, gen,
                       lens_mode="edge"),
         with_out_case("not causal, lens 0..Sk", 6, 16, 24, 8, 64, 512, dtype,
@@ -405,18 +437,21 @@ def phase_kernels(shape) -> dict:
             ms = time_ms(case.kernel_fn, 50)
             plain_ms = time_ms(case.plain_fn, 20)
             lib_ms = time_ms(case.library_fn, 50)
+            also = {name: time_ms(fn, 50) for name, fn in case.also.items()}
             bound_ms, bound_by = case.bound()
             say(f"kernel {case.kernel} [{case.label}, {dt}] "
                 f"max_abs_err={err:.3g} (tol {tol}) {'ok' if ok else 'FAIL'}"
                 f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-                f"{lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+                f"{lib_ms:.4f}"
+                + "".join(f" {name}={t:.4f}" for name, t in also.items())
+                + f" bound_ms={bound_ms:.4f} ({bound_by})")
             if not ok:
                 failures.append(f"{case.kernel} [{case.label}, {dt}]")
             if dtype == torch.bfloat16 and case.kernel not in summary:
                 summary[case.kernel] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-                    case=case.label)
+                    case=case.label, **also)
         for case in edge_cases(dtype, gen):
             ok, err, tol = check_case(case)
             say(f"edge case {case.kernel} [{case.label}, {dt}] "
@@ -628,7 +663,7 @@ def phase_fp32(pixels, bf16_result, shape) -> None:
 # kernel-name fragments -> the part of a Gibbs step they belong to
 PROFILE_GROUPS = (
     ("layer_norm kernel", ("layer_norm_kernel",)),
-    ("masked_attention kernel", ("masked_attention_kernel",)),
+    ("masked_attention kernel", ("masked_attention_",)),
     ("attention_with_out kernel", ("attention_with_out_",)),
     ("attention_block kernels", ("attention_block_",)),
     ("matrix products", ("nvjet", "gemm", "sm90_", "cutlass", "xmma")),
@@ -685,11 +720,12 @@ def phase_profile(cap: Captioner, embeds) -> None:
 # run with a checkout as the working directory: that checkout's own
 # chip_smoke and package are the ones imported
 TREE_RUN = """
+import hashlib
 import sys
 import numpy as np
 import torch
 import chip_smoke as cs
-reps, iters = int(sys.argv[1]), int(sys.argv[2])
+reps, iters, what = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 cs.build.build_all()
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -699,21 +735,53 @@ v = cap.clip_model.config.vision
 pixels = np.random.RandomState(0).rand(
     cs.MAIN["batch"], v.image_size, v.image_size,
     v.num_channels).astype(np.float32)
-for _ in range(reps):
-    cs.phase_main(iters, cap, shape, pixels)
+if what == "kernels":
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in cs.main_path_cases(shape, dtype, gen):
+            print(f"kernel {case.kernel} [{case.label}, {dtype}] "
+                  f"ms={cs.time_ms(case.kernel_fn, 50):.5f}", flush=True)
+    # the fused kernels' outputs on inputs made alike in every tree (one
+    # fresh generator a case; the constructors' signatures since the two
+    # kernels moved to the tensor cores), to show them unchanged bit for
+    # bit
+    for dtype in (torch.bfloat16, torch.float32):
+        for make, before, after in (
+                ("with_out_case", ("text suffix chunk", 800, 16, 24, 8, 64,
+                                   512), (True, "reach")),
+                ("with_out_case", ("N=7, lens 0..Sk", 7, 16, 24, 8, 64, 512),
+                 (True, "edge")),
+                ("with_out_case", ("D=24", 5, 16, 24, 2, 24, 40),
+                 (True, "edge")),
+                ("block_case", ("bert rows", 32, 15, 768, 12, False, None),
+                 ()),
+                ("block_case", ("causal, N=7", 7, 15, 768, 12, True, "edge"),
+                 ()),
+                ("block_case", ("S=100 causal", 2, 100, 64, 2, True, "edge"),
+                 ())):
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            case = getattr(cs, make)(*before, dtype, gen, *after)
+            out = case.kernel_fn().float().cpu().numpy().tobytes()
+            print(f"kernel {case.kernel} [{case.label}, {dtype}] output "
+                  f"sha256 {hashlib.sha256(out).hexdigest()[:16]}",
+                  flush=True)
+else:
+    for _ in range(reps):
+        cs.phase_main(iters, cap, shape, pixels)
 """
 
 
-def compare_trees(trees: List[str], reps: int, iters: int) -> None:
+def compare_trees(trees: List[str], reps: int, iters: int,
+                  what: str) -> None:
     for tree in trees:
         out = subprocess.run(
-            [sys.executable, "-c", TREE_RUN, str(reps), str(iters)],
+            [sys.executable, "-c", TREE_RUN, str(reps), str(iters), what],
             cwd=tree, capture_output=True, text=True, timeout=1100)
         if out.returncode != 0:
             raise RuntimeError(f"the main path failed in {tree}:\n"
                                f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
         for line in out.stdout.splitlines():
-            if "caps/s" in line:
+            if "caps/s" in line or line.startswith("kernel "):
                 say(f"tree {tree}: {line}")
 
 
@@ -721,15 +789,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=15,
                     help="Gibbs iterations of the main-path run")
-    ap.add_argument("--profile", nargs="?", const="pallas", default=None,
-                    choices=ATTN_IMPLS, metavar="ATTN_IMPL",
+    ap.add_argument("--profile", nargs="*", default=None, choices=ATTN_IMPLS,
+                    metavar="ATTN_IMPL",
                     help="also profile one iteration of the main path under "
-                         "this attn_impl (pallas when none is named)")
+                         "each attn_impl named (pallas when none is)")
     ap.add_argument("--trees", nargs="+", metavar="DIR",
                     help="only run the main path in each of these "
                          "checkouts, in this order, and print its caps/s")
     ap.add_argument("--reps", type=int, default=3,
                     help="runs of the main path per entry of --trees")
+    ap.add_argument("--kernels", action="store_true",
+                    help="with --trees: time each tree's kernels at the "
+                         "main-path shapes (phase 2's times) instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
@@ -741,7 +812,8 @@ def main(argv=None) -> int:
         f"python {sys.version.split()[0]}")
     say(f"card: {card}")
     if args.trees:
-        compare_trees(args.trees, args.reps, args.iters)
+        compare_trees(args.trees, args.reps, args.iters,
+                      "kernels" if args.kernels else "main")
         return 0
     build_s = build.build_all()
     say(f"kernels built in {build_s:.2f} s from conzic_torch/csrc "
@@ -783,7 +855,7 @@ def main(argv=None) -> int:
                       ).mean())
         say(f"phase main path [{impl}] ok ({time.perf_counter() - t:.1f} s); "
             f"{same:.4f} of its best caption ids equal the pallas run's")
-        if args.profile == impl:
+        if args.profile is not None and impl in (args.profile or ["pallas"]):
             phase_profile(cap, main[impl]["embeds"])
     del cap
     torch.cuda.empty_cache()
@@ -803,7 +875,9 @@ def main(argv=None) -> int:
                                    for impl, run in main.items()},
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
             bound_ms=s["bound_ms"], bound_by=s["bound_by"],
-            library_ms=s["library_ms"]))
+            library_ms=s["library_ms"],
+            **{k: v for k, v in s.items() if k.endswith("_ms")
+               and k not in ("ms", "plain_ms", "bound_ms", "library_ms")}))
     say(card_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -19,7 +19,10 @@ from torch import nn
 from conzic_torch.kernels.attention_block import attention_block
 from conzic_torch.kernels.attention_with_out import attention_with_out
 from conzic_torch.kernels.layer_norm import layer_norm
-from conzic_torch.kernels.masked_attention import masked_attention
+from conzic_torch.kernels.masked_attention import (
+    masked_attention,
+    with_prefix,
+)
 from conzic_torch.ops.attention import AttnMask
 
 
@@ -65,9 +68,12 @@ class LayerNorm(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """MHA with bias on all projections. ``prefix_kv``: per-image prefix
-    K/V (B, P, H, D) shared by the N = B*G rows of ``x``, broadcast and
-    concatenated in front of the row's own keys. ``x_kv``: keys/values come
-    from it while queries come from ``x`` (the pooled final layer).
+    K/V (B, P, H, D) shared by the N = B*G rows of ``x``, put before each
+    row's own keys: the masked-attention kernel reads it at image width
+    (its prefix form); it is broadcast and concatenated only for the
+    attention-with-output kernel and for ``return_kv``. ``x_kv``:
+    keys/values come from it while queries come from ``x`` (the pooled
+    final layer).
 
     ``attn_impl`` picks the kernel, by the reference's conditions:
     ``"pallas_block"`` runs a pass that has a residual and neither prefix
@@ -111,25 +117,24 @@ class MultiHeadAttention(nn.Module):
         q = self.query(x).view(N, Sq, H, D)
         k = self.key(kv_src).view(N, kv_src.shape[1], H, D)
         v = self.value(kv_src).view(N, kv_src.shape[1], H, D)
+        with_out = (self.attn_impl == "pallas_out" and prefix_kv is not None
+                    and mask.lens is not None and x_kv is None
+                    and not return_kv)
         if prefix_kv is not None:
-            pk, pv = prefix_kv
-            B, P = pk.shape[0], pk.shape[1]
-            G = N // B
-            pk_b = pk.to(k.dtype)[:, None].expand(B, G, P, H, D)
-            pv_b = pv.to(v.dtype)[:, None].expand(B, G, P, H, D)
-            k = torch.cat([pk_b.reshape(N, P, H, D), k], dim=1)
-            v = torch.cat([pv_b.reshape(N, P, H, D), v], dim=1)
-            if (self.attn_impl == "pallas_out" and mask.lens is not None
-                    and x_kv is None and not return_kv):
-                # the kernel's queries are the trailing rows of its keys,
-                # which a pooled layer's (x_kv) are not
-                y = attention_with_out(
-                    q.contiguous(), k.contiguous(), v.contiguous(),
-                    self.out.weight.to(q.dtype), self.out.bias, mask.lens,
-                    mask.causal)
-                return y if residual is None else y + residual
+            prefix_kv = tuple(t.to(dt).contiguous() for t in prefix_kv)
+            if with_out or return_kv:
+                k, v = with_prefix(k, v, prefix_kv)
+                prefix_kv = None
+        if with_out:
+            # the kernel's queries are the trailing rows of its keys, which
+            # a pooled layer's (x_kv) are not
+            y = attention_with_out(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                self.out.weight.to(q.dtype), self.out.bias, mask.lens,
+                mask.causal)
+            return y if residual is None else y + residual
         out = masked_attention(q, k.contiguous(), v.contiguous(), mask.lens,
-                               mask.causal)
+                               mask.causal, prefix_kv)
         out = self.out(out.reshape(N, Sq, H * D))
         if residual is not None:
             out = out + residual
