@@ -17,12 +17,23 @@ Phases, each printing its own lines:
 3. agreement: a tiny fp32 captioner run through the kernels and again with
    every tensor on the CPU must give identical caption ids, under every
    ``attn_impl`` and in the sequential, shuffle, span and parallel orders;
+   then controlled runs (sentiment and POS control, in table and exact
+   mode, and free captioning with the exact bridge) must give identical
+   ids and equal control scores, and the control energy terms on the card
+   must equal the CPU's (``exp`` at 0 .. 77 printed beside them);
 4. main path: full-width ``bert-base-uncased`` + CLIP ViT-B/32 towers with
    random seeded bf16 weights caption B=32 seeded images with the settings
    of bench.py (k=200, sentence_len 10, clip_len 24, sequential order,
    prompt "Image of a", 800-row chunks, prompt-only prefix K/V), once under
    each ``attn_impl``. The launch counts of the kernels over each run are
-   read and checked against what the engine's structure gives.
+   read and checked against what the engine's structure gives. Under
+   ``pallas`` the same run follows with sentiment-positive and POS table
+   control (gamma 5.0), whose launch counts must be the free run's, and
+   one iteration each of the exact modes (sentiment ``ctl_mode="exact"``
+   and ``bridge_mode="exact"``, the latter with full-row counts);
+5. trained checkpoint: ``trained_tiny/`` through the port's own reader
+   (``Captioner.from_tiny_dir``), sentiment-positive and -negative table
+   control on seeded pixels in fp32, card against CPU.
 
 The last two lines are a JSON object with one entry per kernel (its
 ``launches`` are those of the main-path run under the ``attn_impl`` that the
@@ -47,6 +58,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -56,9 +68,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from conzic_torch.config import ConzicConfig
+from conzic_torch import energies
+from conzic_torch.config import ATTN_IMPLS, ConzicConfig
 from conzic_torch.engine.sampler import Captioner
-from conzic_torch.config import ATTN_IMPLS
+from conzic_torch.eval import ndiv
+from conzic_torch.eval.sentiment_eval import (
+    _nltk_ready,
+    batch_texts_sentiment_scores,
+)
 from conzic_torch.kernels import build
 from conzic_torch.kernels.attention_block import (
     attention_block,
@@ -76,6 +93,7 @@ from conzic_torch.kernels.masked_attention import (
 from conzic_torch.kernels.timing import time_ms
 from conzic_torch.models.configs import BertConfig, CLIPConfig
 from conzic_torch.ops.attention import attention_keep_mask
+from conzic_torch.text.lexicons import UNIVERSAL_TAGS, _nltk_available
 from conzic_torch.text.vocab import make_fullsize_wordpiece_vocab
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -123,6 +141,34 @@ ROUTE_OF = {"layer_norm": "pallas", "masked_attention": "pallas",
 DEVICE = "cuda"
 MAIN = dict(batch=32, top_k=200, sentence_len=10, clip_len=24,
             prompt="Image of a", row_chunk=800, kv_chunk=16)
+GAMMA = 5.0  # the control weight of the controlled runs
+TRAINED_TINY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "trained_tiny")
+# a per-call POS template: list slots, a string slot (a substring test in
+# exact mode) and a bare "" slot (matches anything)
+AGREE_TEMPLATE = [["DET"], ["NOUN"], "ADJ", "", ["VERB", "NOUN"]]
+# (label, config fields, run arguments) of the controlled agreement runs
+CONTROL_CASES = (
+    ("sentiment table, positive, sequential", {},
+     dict(ctl="sentiment", order="sequential")),
+    ("sentiment table, negative, sequential", {},
+     dict(ctl="sentiment", negative=True, order="sequential")),
+    ("sentiment table, positive, shuffle", {},
+     dict(ctl="sentiment", order="shuffle")),
+    ("sentiment table, negative, shuffle", {},
+     dict(ctl="sentiment", negative=True, order="shuffle")),
+    ("pos table, default template", {}, dict(ctl="pos", order="sequential")),
+    ("pos table, per-call template", {},
+     dict(ctl="pos", order="sequential", pos_template=AGREE_TEMPLATE)),
+    ("sentiment exact", dict(ctl_mode="exact"),
+     dict(ctl="sentiment", order="sequential")),
+    ("pos exact", dict(ctl_mode="exact"), dict(ctl="pos",
+                                              order="sequential")),
+    ("free, exact bridge, sequential", dict(bridge_mode="exact"),
+     dict(order="sequential")),
+    ("free, exact bridge, span", dict(bridge_mode="exact"),
+     dict(order="span")),
+)
 
 
 def say(*parts) -> None:
@@ -474,6 +520,45 @@ def run_args(**kw):
                 **kw)
 
 
+def seeded_pixels(cap: Captioner, n: int, seed: int = 0) -> np.ndarray:
+    v = cap.clip_model.config.vision
+    return np.random.RandomState(seed).rand(
+        n, v.image_size, v.image_size, v.num_channels).astype(np.float32)
+
+
+def same_images(cpu: Captioner, gpu: Captioner, pixels, label: str):
+    """The CPU's image embeddings, after checking the card's against them;
+    returns (embeddings, largest difference)."""
+    emb_cpu = cpu.encode_images(pixels)
+    emb_err = float((emb_cpu - gpu.encode_images(pixels).cpu()).abs().max())
+    if emb_err > AGREE_COS_ATOL:
+        raise AssertionError(f"image embeddings differ by {emb_err:.3g} "
+                             f"({label})")
+    return emb_cpu, emb_err
+
+
+def tiny_pair(cfg: ConzicConfig):
+    """A tiny captioner on the CPU, its copy on the card (one config object,
+    read by both at run time), and the CPU's embeddings of three seeded
+    images."""
+    cpu = Captioner.from_random(config=cfg, seed=0, device="cpu")
+    gpu = Captioner(copy.deepcopy(cpu.bert_model),
+                    copy.deepcopy(cpu.clip_model), cpu.wp, cpu.bpe, cfg,
+                    device=DEVICE)
+    emb, err = same_images(cpu, gpu, seeded_pixels(cpu, 3), cfg.attn_impl)
+    return cpu, gpu, emb, err
+
+
+def compare_runs(a, b):
+    """(caption ids identical, control scores equal, largest cosine
+    difference) of a CPU run and a card run."""
+    same = (bool((a.iter_ids == b.iter_ids).all())
+            and bool((a.best_ids == b.best_ids).all()))
+    cos_err = float(np.abs(np.asarray(a.clip_score_sequence)
+                           - np.asarray(b.clip_score_sequence)).max())
+    return same, bool(np.array_equal(a.iter_ctl, b.iter_ctl)), cos_err
+
+
 def phase_agreement() -> None:
     """A tiny fp32 captioner through the kernels == the same on the CPU,
     under every attn_impl: the four orders with prompt-prefix K/V, and the
@@ -481,19 +566,7 @@ def phase_agreement() -> None:
     (kv_chunk_size=0), where the block kernel takes the causal text rows."""
     for impl in ATTN_IMPLS:
         cfg = ConzicConfig(dtype="float32", attn_impl=impl)
-        cpu = Captioner.from_random(config=cfg, seed=0, device="cpu")
-        gpu = Captioner(copy.deepcopy(cpu.bert_model),
-                        copy.deepcopy(cpu.clip_model), cpu.wp, cpu.bpe, cfg,
-                        device=DEVICE)
-        v = cpu.clip_model.config.vision
-        px = np.random.RandomState(0).rand(3, v.image_size, v.image_size,
-                                           v.num_channels).astype(np.float32)
-        emb_cpu = cpu.encode_images(px)
-        emb_gpu = gpu.encode_images(px).cpu()
-        emb_err = float((emb_cpu - emb_gpu).abs().max())
-        if emb_err > AGREE_COS_ATOL:
-            raise AssertionError(f"image embeddings differ by {emb_err:.3g} "
-                                 f"({impl})")
+        cpu, gpu, emb_cpu, emb_err = tiny_pair(cfg)
         runs = [(order, 16) for order in ("sequential", "shuffle", "span",
                                           "parallel")] + [("sequential", 0)]
         for order, kv_chunk in runs:
@@ -502,10 +575,7 @@ def phase_agreement() -> None:
                             n_samples=2)
             a = cpu.run(emb_cpu, rng=np.random.RandomState(7), **args)
             b = gpu.run(emb_cpu, rng=np.random.RandomState(7), **args)
-            same = (bool((a.iter_ids == b.iter_ids).all())
-                    and bool((a.best_ids == b.best_ids).all()))
-            cos_err = float(np.abs(np.asarray(a.clip_score_sequence)
-                                   - np.asarray(b.clip_score_sequence)).max())
+            same, _, cos_err = compare_runs(a, b)
             say(f"agreement [{impl}, {order}, kv_chunk_size={kv_chunk}]: "
                 f"caption ids identical={same} max cosine diff="
                 f"{cos_err:.3g} (tol {AGREE_COS_ATOL:g}) image embed diff="
@@ -513,6 +583,104 @@ def phase_agreement() -> None:
             if not same or cos_err > AGREE_COS_ATOL:
                 raise AssertionError(f"GPU and CPU runs differ ({impl}, "
                                      f"{order}, kv_chunk_size={kv_chunk})")
+
+
+def phase_control_agreement() -> None:
+    """Controlled tiny fp32 runs, card against CPU: identical caption ids
+    and equal control scores in every case of CONTROL_CASES."""
+    cfg = ConzicConfig(dtype="float32")
+    cpu, gpu, emb, _ = tiny_pair(cfg)
+    for label, cfg_kw, run_kw in CONTROL_CASES:
+        for knob, value in cfg_kw.items():
+            setattr(cfg, knob, value)
+        args = run_args(max_len=5, top_k=16, max_iter=2, n_samples=2,
+                        gamma=GAMMA, **run_kw)
+        try:
+            a = cpu.run(emb, rng=np.random.RandomState(7), **args)
+            b = gpu.run(emb, rng=np.random.RandomState(7), **args)
+        finally:
+            cfg.bridge_mode = cfg.ctl_mode = "table"
+        same, same_ctl, cos_err = compare_runs(a, b)
+        say(f"agreement [control: {label}]: caption ids identical={same} "
+            f"iter_ctl equal={same_ctl} (mean {float(a.iter_ctl.mean()):.4f})"
+            f" max cosine diff={cos_err:.3g} (tol {AGREE_COS_ATOL:g})")
+        if not (same and same_ctl) or cos_err > AGREE_COS_ATOL:
+            raise AssertionError(f"GPU and CPU controlled runs differ "
+                                 f"({label})")
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance of two fp32 tensors in units in the last place."""
+    a, b = a.float().contiguous(), b.float().contiguous()
+    return int((a.view(torch.int32).long()
+                - b.view(torch.int32).long()).abs().max())
+
+
+def phase_energy_terms() -> None:
+    """The control energy terms on the card against the CPU on the same
+    seeded tie-heavy inputs at the main path's shape (B=32, k=200, a BERT
+    row of 15). Terms whose arithmetic has one rounding per value (sums of
+    table valences, a count times float32(1/T), products and sums) must be
+    equal bit for bit; the softmax and exp terms print their distance.
+    ``exp`` at 0 .. 77 is printed where card and CPU differ."""
+    rng = np.random.RandomState(0)
+    B, k, S, V, T = 32, 200, 15, 64, 12
+    C = len(UNIVERSAL_TAGS) + 1
+    rows = rng.randint(0, 8, size=(B, 1, S)).repeat(k, axis=1)
+    ids = rng.randint(0, 8, size=(B, k))
+    rows[np.arange(B), :, rng.randint(1, S - 1, size=B)] = ids
+    arrays = dict(
+        ids=ids, rows=rows,
+        senti=rng.choice([0.0, 0.0, 0.5, 0.75, -0.5, -0.75],
+                         size=V).astype(np.float32),
+        pos=rng.randint(0, C - 1, size=V).astype(np.int32),
+        template=(rng.rand(T, C) < 0.4).astype(np.float32),
+        valid=(rng.rand(B, k, S - 2) < 0.8).astype(np.int32),
+        lm=np.where(rng.rand(B, k) < 0.6, 0.0,
+                    rng.rand(B, k)).astype(np.float32),
+        clip=rng.rand(B, k).astype(np.float32) * 1e-2)
+
+    def terms(dev):
+        t = {n: torch.from_numpy(a).to(dev) for n, a in arrays.items()}
+        out = {"sentiment_scores": energies.sentiment_scores(
+            t["rows"], t["senti"], negative=False)}
+        out["sentiment_scores (negative)"] = energies.sentiment_scores(
+            t["rows"], t["senti"], negative=True)
+        out["pos_accuracy"] = energies.pos_accuracy(
+            t["rows"][:, :, 1:-1], t["pos"], t["template"], t["valid"])
+        out["pos_accuracy / 0.1"] = energies._div_const(
+            out["pos_accuracy"], 0.1)
+        out["sentiment_probs"] = energies.sentiment_probs(
+            out["sentiment_scores"])
+        out["pos_probs"] = energies.pos_probs(out["pos_accuracy"])
+        out["repeat_penalty"] = energies.repeat_penalty(t["ids"], t["rows"])
+        if "ctl" in t:  # the combine of the CPU's control terms
+            out["combine (inputs from the CPU)"] = energies.combine_scores(
+                t["lm"], t["clip"], 0.02, 2.0, t["ctl"], GAMMA, t["pen"])
+        return out
+
+    first = terms("cpu")
+    arrays["ctl"] = first["sentiment_probs"].numpy()
+    arrays["pen"] = first["repeat_penalty"].numpy()
+    cpu = terms("cpu")
+    gpu = {n: v.cpu() for n, v in terms(DEVICE).items()}
+    exact = ("sentiment_scores", "sentiment_scores (negative)",
+             "pos_accuracy", "pos_accuracy / 0.1",
+             "combine (inputs from the CPU)")
+    bad = []
+    for name in cpu:
+        d = ulps(cpu[name], gpu[name])
+        say(f"energy term [{name}]: card vs CPU {d} ulp"
+            + (" (must be 0)" if name in exact else ""))
+        if name in exact and d:
+            bad.append(name)
+    r = torch.arange(78, dtype=torch.float32)
+    e_cpu, e_gpu = torch.exp(r), torch.exp(r.to(DEVICE)).cpu()
+    diff = (e_cpu.view(torch.int32) != e_gpu.view(torch.int32)).nonzero()
+    say(f"exp at 0..77, card vs CPU: {ulps(e_cpu, e_gpu)} ulp at most, "
+        f"differing at {[int(i) for i in diff.flatten()]}")
+    if bad:
+        raise AssertionError(f"control terms differ on the card: {bad}")
 
 
 def full_captioner(dtype: str, attn_impl: str = "pallas") -> Captioner:
@@ -568,7 +736,7 @@ def check_output(cap: Captioner, res, iters: int, shape: dict) -> None:
                              "and the best list")
 
 
-def expected_launches(cap: Captioner, n_chunks: int):
+def expected_launches(cap: Captioner, n_chunks: int, full_rows=False):
     """What the engine's structure gives for one generation of the main
     path, as (once per generation, per Gibbs step) launch counts.
 
@@ -580,13 +748,17 @@ def expected_launches(cap: Captioner, n_chunks: int):
     tower, returning K/V, and the vision tower (pre-LN, 2 LN per layer,
     post-LN). A pooled layer and a pass that returns K/V always take the
     masked-attention kernel; the other passes take the kernel their
-    attn_impl names."""
+    attn_impl names. ``full_rows`` (the exact bridge): no prefix pass, and
+    every chunk encodes whole candidate rows, whose attention blocks but
+    the pooled last take ``attention_block`` under pallas_block and the
+    masked-attention kernel otherwise."""
     nb = cap.bert_model.config.num_layers
     nt = cap.clip_model.config.text.num_layers
     nv = cap.clip_model.config.vision.num_layers
     impl = cap.cfg.attn_impl
-    once = {"layer_norm": (2 * nt + 1) + (2 * nv + 2),
-            "masked_attention": nt + nv, "attention_with_out": 0,
+    prefix = 0 if full_rows else 1
+    once = {"layer_norm": prefix * (2 * nt + 1) + (2 * nv + 2),
+            "masked_attention": prefix * nt + nv, "attention_with_out": 0,
             "attention_block": 0}
     step = {"layer_norm": 2 * nb + 2 + (2 * nt + 1) * n_chunks,
             "masked_attention": nb + nt * n_chunks, "attention_with_out": 0,
@@ -596,12 +768,23 @@ def expected_launches(cap: Captioner, n_chunks: int):
         counts["masked_attention"] -= n
         counts[to] += n
 
-    if impl == "pallas_out":  # the suffix passes, but for the pooled last
-        move(step, (nt - 1) * n_chunks, "attention_with_out")
+    if impl == "pallas_out" and not full_rows:  # the suffix passes, but
+        move(step, (nt - 1) * n_chunks, "attention_with_out")  # pooled last
     elif impl == "pallas_block":  # BERT's layers but the pooled last; vision
         move(step, nb - 1, "attention_block")
         move(once, nv, "attention_block")
+        if full_rows:
+            move(step, (nt - 1) * n_chunks, "attention_block")
     return once, step
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_launches() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 def phase_main(iters: int, cap: Captioner, shape: dict, pixels) -> dict:
@@ -613,12 +796,11 @@ def phase_main(iters: int, cap: Captioner, shape: dict, pixels) -> dict:
             rng=np.random.RandomState(42), **args)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    reset_launches()
     embeds = cap.encode_images(pixels)
     res = cap.run(embeds, max_iter=iters, rng=np.random.RandomState(42),
                   **args)
-    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = iters * L
     say(f"main path [{impl}]: B={B} k={MAIN['top_k']} sentence_len={L} "
@@ -640,7 +822,125 @@ def phase_main(iters: int, cap: Captioner, shape: dict, pixels) -> dict:
         raise AssertionError(f"launch counts {launches} != {want}")
     check_output(cap, res, iters, shape)
     say(f"first caption [{impl}]: {res.gen_texts_list[-2][0]!r}")
-    return dict(launches=launches, result=res, embeds=embeds)
+    return dict(launches=launches, result=res, embeds=embeds,
+                s_per_step=res.elapsed_s / steps)
+
+
+def phase_controlled(iters: int, cap: Captioner, shape: dict, pixels,
+                     free: dict) -> dict:
+    """The main path again with sentiment-positive, then POS table control
+    (gamma 5.0, the default template): caps/s, s per Gibbs step, the mean
+    committed control score, and launch counts that must equal the free
+    run's, since control changes no tower pass."""
+    B, L = MAIN["batch"], MAIN["sentence_len"]
+    steps = iters * L
+    t = time.perf_counter()
+    cap._ensure_ctl_tables()
+    say(f"control tables built in {time.perf_counter() - t:.3f} s over "
+        f"{cap.wp.vocab_size} tokens: "
+        f"{'NLTK' if _nltk_available() else 'built-in'} tables, "
+        f"{'NLTK' if _nltk_ready() else 'built-in'} sentence scoring "
+        f"(exact mode); {int((cap.tables['senti'] != 0).sum())} tokens "
+        f"carry a valence")
+    args = run_args(max_len=L, top_k=MAIN["top_k"], order="sequential",
+                    gamma=GAMMA)
+    cap.run(free["embeds"], max_iter=1, rng=np.random.RandomState(42),
+            ctl="sentiment", **args)  # warm-up
+    out = {}
+    for label, kw in (("sentiment positive", dict(ctl="sentiment")),
+                      ("pos", dict(ctl="pos"))):
+        torch.cuda.synchronize()
+        reset_launches()
+        res = cap.run(cap.encode_images(pixels), max_iter=iters,
+                      rng=np.random.RandomState(42), **args, **kw)
+        launches = read_launches()
+        check_output(cap, res, iters, shape)
+        say(f"controlled main path [{label} table, {cap.cfg.attn_impl}]: "
+            f"{res.elapsed_s:.3f} s for {steps} Gibbs steps, "
+            f"{B / res.elapsed_s:.4f} caps/s, {res.elapsed_s / steps:.5f} s "
+            f"per Gibbs step (free: {free['s_per_step']:.5f}), mean "
+            f"committed iter_ctl {float(res.iter_ctl.mean()):.4f}, last "
+            f"iteration {float(res.iter_ctl[-1].mean()):.4f}")
+        say(f"launches [{label} table]: {launches}; free captioning: "
+            f"{free['launches']}")
+        if launches != free["launches"]:
+            raise AssertionError(f"controlled launch counts {launches} != "
+                                 f"free {free['launches']}")
+        say(f"first caption [{label}]: {res.gen_texts_list[-2][0]!r}")
+        out[label] = dict(result=res, s_per_step=res.elapsed_s / steps)
+    return out
+
+
+def phase_exact(cap: Captioner, shape: dict, pixels, free: dict,
+                controlled: dict) -> None:
+    """One iteration of each exact mode at full width: sentiment control
+    scored on the host (32 x 200 decoded candidates tagged a Gibbs step)
+    and free captioning with the exact bridge (as many re-tokenizations a
+    step, then full candidate rows through the text tower). s per Gibbs
+    step beside the table mode's; launch counts by the engine's structure
+    (full rows for the bridge)."""
+    L = MAIN["sentence_len"]
+    args = run_args(max_len=L, top_k=MAIN["top_k"], order="sequential",
+                    gamma=GAMMA)
+    runs = (("sentiment exact", "ctl_mode", dict(ctl="sentiment"),
+             controlled["sentiment positive"]["s_per_step"]),
+            ("exact bridge", "bridge_mode", {}, free["s_per_step"]))
+    for label, knob, kw, table_s in runs:
+        setattr(cap.cfg, knob, "exact")
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            res = cap.run(cap.encode_images(pixels), max_iter=1,
+                          rng=np.random.RandomState(42), **args, **kw)
+            launches = read_launches()
+        finally:
+            setattr(cap.cfg, knob, "table")
+        check_output(cap, res, 1, shape)
+        once, per_step = expected_launches(cap, shape["n_chunks"],
+                                           full_rows=knob == "bridge_mode")
+        want = {n: once[n] + L * per_step[n] for n in once}
+        say(f"exact mode [{label}, {cap.cfg.attn_impl}]: {res.elapsed_s:.3f} "
+            f"s for {L} "
+            f"Gibbs steps, {res.elapsed_s / L:.5f} s per Gibbs step (table "
+            f"mode: {table_s:.5f}), mean committed iter_ctl "
+            f"{float(res.iter_ctl.mean()):.4f}")
+        say(f"launches [{label}]: {launches}; the engine's structure gives "
+            f"{want}")
+        if launches != want:
+            raise AssertionError(f"launch counts {launches} != {want} "
+                                 f"({label})")
+    host_breakdown(cap, res)
+
+
+def host_breakdown(cap: Captioner, res) -> None:
+    """The host work of one exact-mode step, timed piece by piece on
+    32 x 200 candidate rows made like a step's (the last iteration's rows,
+    a seeded vocabulary id at one sentence slot)."""
+    B, k, L = MAIN["batch"], MAIN["top_k"], MAIN["sentence_len"]
+    rng = np.random.RandomState(0)
+    rows = np.repeat(res.iter_ids[-1][:, None, 1:-1], k, axis=1)
+    slot = rng.randint(0, L, size=B)
+    rows[np.arange(B), :, res.iter_ids.shape[2] - L - 2 + slot] = \
+        rng.randint(0, cap.wp.vocab_size, size=(B, k))
+    rows = rows.reshape(B * k, -1)
+    timed = {}
+
+    def clock(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        timed[name] = time.perf_counter() - t
+        return out
+
+    texts = clock("decode", lambda: cap.wp.batch_decode(
+        rows, skip_special_tokens=True))
+    clock("word_tokenize", lambda: [ndiv.word_tokenize(x) for x in texts])
+    clock("regex alone", lambda: [ndiv._WORD_RE.findall(x.lower())
+                                  for x in texts])
+    clock("sentiment scoring", lambda: batch_texts_sentiment_scores(texts))
+    clock("BPE encode", lambda: cap.bpe.batch_encode(
+        texts, max_length=MAIN["clip_len"], pad_to_max=True))
+    say(f"exact mode host work on {B * k} candidates (s): "
+        + ", ".join(f"{n} {t:.4f}" for n, t in timed.items()))
 
 
 def phase_fp32(pixels, bf16_result, shape) -> None:
@@ -658,6 +958,33 @@ def phase_fp32(pixels, bf16_result, shape) -> None:
     b = res.iter_ids[0, :, seed:seed + L]
     say(f"fp32 vs bf16, first iteration: {float((a == b).mean()):.4f} of "
         f"caption ids agree ({res.elapsed_s:.3f} s at fp32)")
+
+
+def phase_trained() -> None:
+    """trained_tiny/ through the port's own checkpoint reader, on the card
+    and on the CPU, fp32: sentiment-positive and -negative table control on
+    four seeded images give identical ids and control scores."""
+    cfg = ConzicConfig(dtype="float32")
+    gpu = Captioner.from_tiny_dir(cfg, TRAINED_TINY, device=DEVICE)
+    cpu = Captioner.from_tiny_dir(cfg, TRAINED_TINY, device="cpu")
+    emb, emb_err = same_images(cpu, gpu, seeded_pixels(cpu, 4, seed=1),
+                               "trained_tiny")
+    for negative in (False, True):
+        label = "negative" if negative else "positive"
+        args = run_args(max_len=8, top_k=64, max_iter=2, gamma=GAMMA,
+                        ctl="sentiment", negative=negative,
+                        order="sequential")
+        a = cpu.run(emb, rng=np.random.RandomState(7), **args)
+        b = gpu.run(emb, rng=np.random.RandomState(7), **args)
+        same, same_ctl, cos_err = compare_runs(a, b)
+        say(f"trained_tiny [sentiment {label} table, fp32]: caption ids "
+            f"identical={same} iter_ctl equal={same_ctl} max cosine diff="
+            f"{cos_err:.3g} image embed diff={emb_err:.3g}; mean iter_ctl "
+            f"{float(b.iter_ctl.mean()):.4f} (information); first caption "
+            f"{b.gen_texts_list[-2][0]!r}")
+        if not (same and same_ctl) or cos_err > AGREE_COS_ATOL:
+            raise AssertionError(f"trained_tiny runs differ on the card "
+                                 f"({label})")
 
 
 # kernel-name fragments -> the part of a Gibbs step they belong to
@@ -836,6 +1163,10 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     phase_agreement()
     say(f"phase agreement ok ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    phase_control_agreement()
+    phase_energy_terms()
+    say(f"phase control agreement ok ({time.perf_counter() - t:.1f} s)")
 
     v = cap.clip_model.config.vision
     pixels = np.random.RandomState(0).rand(
@@ -857,12 +1188,25 @@ def main(argv=None) -> int:
             f"{same:.4f} of its best caption ids equal the pallas run's")
         if args.profile is not None and impl in (args.profile or ["pallas"]):
             phase_profile(cap, main[impl]["embeds"])
+        if impl == "pallas":
+            t = time.perf_counter()
+            controlled = phase_controlled(args.iters, cap, shape, pixels,
+                                          main[impl])
+            say(f"phase controlled main path ok "
+                f"({time.perf_counter() - t:.1f} s)")
+            t = time.perf_counter()
+            phase_exact(cap, shape, pixels, main[impl], controlled)
+            say(f"phase exact modes ok ({time.perf_counter() - t:.1f} s)")
     del cap
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
     phase_fp32(pixels, main["pallas"]["result"], shape)
-    say(f"phase fp32 ok ({time.perf_counter() - t:.1f} s); "
+    say(f"phase fp32 ok ({time.perf_counter() - t:.1f} s)")
+
+    t = time.perf_counter()
+    phase_trained()
+    say(f"phase trained checkpoint ok ({time.perf_counter() - t:.1f} s); "
         f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

@@ -1,25 +1,40 @@
-"""The Gibbs polishing engine, free captioning in every order.
+"""The Gibbs polishing engine, free and controlled captioning in every order.
 
 Counterpart of ``conzic_tpu/engine/gibbs.py``. For each iteration and each
 position of the schedule: mask the position, take BERT's top-k proposals at
 that slot only, assemble the k candidate CLIP rows through the bridge table,
 encode them with the CLIP text tower (row chunks over the prompt prefix's
-cached K/V), score ``alpha * lm + beta * clip``, commit the argmax, and
-track the best-by-cosine caption. The span order polishes the slots of a
-span from one BERT forward and the parallel order every slot from one
-unmasked forward (engine/orders.py). The reference package's ``lax.scan``s
-and ``lax.map`` are Python loops here; every step stays on the device and
-the host reads nothing back until the generation ends.
+cached K/V), score ``alpha * lm + beta * clip`` (``+ gamma * ctl`` and the
+repeat penalty under control), commit the argmax, and track the
+best-by-cosine caption. The span order polishes the slots of a span from
+one BERT forward and the parallel order every slot from one unmasked
+forward (engine/orders.py). The reference package's ``lax.scan``s and
+``lax.map`` are Python loops here.
+
+The exact host modes run in the same loop. ``bridge_mode="exact"`` builds
+the candidate CLIP rows by the reference's decode -> re-tokenize
+(:func:`host_bridge_fn`), and ``ctl_mode="exact"`` scores every decoded
+candidate with the reference's sentence-level pipeline
+(:func:`host_ctl_fn`): each is a plain Python call at its Gibbs step, one
+device-to-host copy of the (B, k, S-2) candidate ids and one host-to-device
+copy of the result. The reference needs a second engine for them,
+``conzic_tpu/engine/host_exact.py``, only because a TPU runtime lacked host
+callbacks; that module is folded in here and has no counterpart. Every
+other step stays on the device, and the host reads nothing else back until
+the generation ends.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from conzic_torch import energies
+from conzic_torch.eval.pos_eval import batch_texts_pos_analysis
+from conzic_torch.eval.sentiment_eval import batch_texts_sentiment_scores
 from conzic_torch.models.bert import BertForMaskedLM
 from conzic_torch.models.clip import CLIPModel
 from conzic_torch.text.bridge import (
@@ -46,11 +61,66 @@ class EngineSpec:
     clip_row_chunk: int = 0  # candidate rows per text-tower pass; 0 = all
     clip_pad_to: int = 0  # pad candidate rows to this length; 0 = off
     order_kind: str = "single"  # single | span | parallel
+    ctl: Optional[str] = None  # None | "sentiment" | "pos"
+    negative: bool = False  # sentiment polarity
+    # control energies: "table" (device tables) or "exact" (host_ctl)
+    ctl_mode: str = "table"
+    # candidate CLIP rows from host_bridge, each encoded in full
+    exact_bridge: bool = False
+
+
+def _decode(decoder, inner: torch.Tensor) -> List[str]:
+    """(B, k, S-2) candidate ids on the device -> B*k caption texts (one
+    device-to-host copy)."""
+    B, k, P = inner.shape
+    return decoder.batch_decode(inner.reshape(B * k, P).cpu().numpy(),
+                                skip_special_tokens=True)
+
+
+def host_bridge_fn(decoder, bpe, clip_len: int):
+    """``bridge_mode="exact"``: decode every candidate row and re-tokenize
+    it, as the reference does (``bpe.batch_encode(texts,
+    max_length=clip_len, pad_to_max=True)``). The callable maps (B, k, S-2)
+    ids to (B, k, clip_len) CLIP ids and attention mask on their device."""
+    def host_bridge(inner: torch.Tensor):
+        B, k, _ = inner.shape
+        ids, mask = bpe.batch_encode(_decode(decoder, inner),
+                                     max_length=clip_len, pad_to_max=True)
+        both = torch.from_numpy(np.stack([ids, mask]).astype(np.int32))
+        both = both.reshape(2, B, k, clip_len).to(inner.device)
+        return both[0], both[1]
+    return host_bridge
+
+
+def host_ctl_fn(decoder, ctl: str, negative: bool,
+                template: Optional[Sequence]):
+    """``ctl_mode="exact"``: decode every candidate row and score the
+    sentence with the reference's pipeline (eval/sentiment_eval.py,
+    eval/pos_eval.py). The callable maps (B, k, S-2) ids to (B, k) scores
+    on their device, the Python float scores cast to float32 at the
+    end."""
+    def host_ctl(inner: torch.Tensor) -> torch.Tensor:
+        B, k, _ = inner.shape
+        texts = _decode(decoder, inner)
+        if ctl == "sentiment":
+            scores = batch_texts_sentiment_scores(texts, negative=negative)
+        else:
+            _, scores = batch_texts_pos_analysis(texts, template)
+        scores = np.asarray(scores, np.float32).reshape(B, k)
+        return torch.from_numpy(scores).to(inner.device)
+    return host_ctl
+
+
+class HostCalls(NamedTuple):
+    """The host callables of the exact modes (None when unused)."""
+    bridge: Optional[Callable] = None  # host_bridge_fn's
+    ctl: Optional[Callable] = None  # host_ctl_fn's
 
 
 class Generation(NamedTuple):
     iter_ids: torch.Tensor  # (I, B, S) rows after each iteration
     iter_cos: torch.Tensor  # (I, B) cosine of the last committed candidate
+    iter_ctl: torch.Tensor  # (I, B) its control score (0 without control)
     best_ids: torch.Tensor  # (B, S)
     best_cos: torch.Tensor  # (B,)
 
@@ -99,34 +169,66 @@ def _position_update(spec: EngineSpec, clip: CLIPModel,
                      image_embeds: torch.Tensor, base_ids: torch.Tensor,
                      commit_ids: torch.Tensor, pos: torch.Tensor,
                      logits: torch.Tensor, token_mask: torch.Tensor,
-                     prefix_len: int, prefix_kvs: Optional[List]
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     prefix_len: int, prefix_kvs: Optional[List],
+                     host: HostCalls
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Score k candidates for ``pos`` (B,) and commit the argmax.
     ``base_ids``: the rows the candidates are built from; ``commit_ids``:
     the rows the winner is written into (they differ only in the parallel
-    order). Returns (new commit rows, cosine of the committed
-    candidate)."""
+    order). Returns (new commit rows, cosine and control score of the
+    committed candidate)."""
     B = base_ids.shape[0]
+    k = spec.candidate_k
     col = spec.seed_len + pos  # (B,)
     probs = energies.masked_lm_probs(logits, token_mask, hyper["temperature"])
-    top_probs, idxs = energies.topk_candidates(probs, token_mask,
-                                               spec.candidate_k)
-    clip_ids, clip_mask = assemble_clip_ids_substitute(
-        base_ids[:, 1:spec.seq_len - 1], idxs, col - 1, tables["bridge_ids"],
-        tables["bridge_lens"], bos_id=spec.clip_bos_id,
-        eos_id=spec.clip_eos_id, pad_id=spec.clip_pad_id,
-        clip_len=spec.clip_len)
+    top_probs, idxs = energies.topk_candidates(probs, token_mask, k)
+    cand = inner = None
+    if spec.ctl is not None or spec.exact_bridge:
+        # (B, k, S) candidate rows and their caption span (no CLS / SEP)
+        onehot = (torch.arange(base_ids.shape[1], device=base_ids.device)
+                  [None, :] == col[:, None])  # (B, S)
+        cand = torch.where(onehot[:, None, :], idxs[:, :, None],
+                           base_ids[:, None, :].long())
+        inner = cand[:, :, 1:spec.seq_len - 1]
+    if spec.exact_bridge:
+        clip_ids, clip_mask = host.bridge(inner)
+        prefix_len = 0  # the table's prefix bound does not hold here
+    else:
+        clip_ids, clip_mask = assemble_clip_ids_substitute(
+            base_ids[:, 1:spec.seq_len - 1], idxs, col - 1,
+            tables["bridge_ids"], tables["bridge_lens"],
+            bos_id=spec.clip_bos_id, eos_id=spec.clip_eos_id,
+            pad_id=spec.clip_pad_id, clip_len=spec.clip_len)
     text_embeds = _encode_candidates(spec, clip, clip_ids, clip_mask,
                                      prefix_len, prefix_kvs)
     clip_probs, cosine = clip.similarity(image_embeds, text_embeds)
-    final = energies.combine_scores(top_probs, clip_probs, hyper["alpha"],
-                                    hyper["beta"])
+
+    ctl_probs = penalty = None
+    ctl_score = torch.zeros((B, k), device=cosine.device)
+    if spec.ctl is not None and spec.ctl_mode == "exact":
+        ctl_score = host.ctl(inner)
+    elif spec.ctl == "sentiment":
+        ctl_score = energies.sentiment_scores(cand, tables["senti"],
+                                              negative=spec.negative)
+    elif spec.ctl == "pos":
+        word_valid = (tables["bridge_lens"][inner] > 0).int()
+        ctl_score = energies.pos_accuracy(inner, tables["pos"],
+                                          tables["template"], word_valid)
+    if spec.ctl == "sentiment":
+        ctl_probs = energies.sentiment_probs(ctl_score)
+        penalty = energies.repeat_penalty(idxs, cand)
+    elif spec.ctl == "pos":
+        ctl_probs = energies.pos_probs(ctl_score)
+    final = energies.combine_scores(
+        top_probs, clip_probs, hyper["alpha"], hyper["beta"],
+        ctl_probs=ctl_probs, gamma=hyper["gamma"], penalty=penalty)
     sel = torch.argmax(final, dim=1)[:, None]  # (B, 1)
     chosen = torch.gather(idxs, 1, sel)[:, 0]
     rows = torch.arange(B, device=commit_ids.device)
     new_ids = commit_ids.clone()
     new_ids[rows, col] = chosen.to(commit_ids.dtype)
-    return new_ids, torch.gather(cosine, 1, sel)[:, 0]
+    return (new_ids, torch.gather(cosine, 1, sel)[:, 0],
+            torch.gather(ctl_score, 1, sel)[:, 0])
 
 
 def _fresh_logits(spec: EngineSpec, bert: BertForMaskedLM, ids: torch.Tensor,
@@ -161,18 +263,20 @@ def _sentence_logits(spec: EngineSpec, bert: BertForMaskedLM,
 def _iteration(spec: EngineSpec, bert: BertForMaskedLM, clip: CLIPModel,
                tables: Dict[str, torch.Tensor], hyper: Dict[str, float],
                image_embeds: torch.Tensor, ids: torch.Tensor, row,
-               prefix_kvs: Optional[List]
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               prefix_kvs: Optional[List], host: HostCalls
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One sweep over a schedule row. single: ``row`` is (steps, B)
     positions on the device. span: ``row`` is (starts, sizes), two lists of
-    Python ints. parallel: ``row`` is not read."""
+    Python ints. parallel: ``row`` is not read. Returns the rows, and the
+    cosine and control score of the last committed candidates."""
     B = ids.shape[0]
     cos = torch.zeros(B, device=ids.device)
+    ctl = torch.zeros(B, device=ids.device)
 
     def update(base_ids, commit_ids, pos, logits, token_mask, P):
         return _position_update(spec, clip, tables, hyper, image_embeds,
                                 base_ids, commit_ids, pos, logits,
-                                token_mask, P, prefix_kvs)
+                                token_mask, P, prefix_kvs, host)
 
     def slot(j):
         return torch.full((B,), j, dtype=torch.long, device=ids.device)
@@ -183,10 +287,10 @@ def _iteration(spec: EngineSpec, bert: BertForMaskedLM, clip: CLIPModel,
         for P, n in chunks:
             for pos in row[step:step + n]:
                 masked, logits = _fresh_logits(spec, bert, ids, pos)
-                ids, cos = update(masked, masked, pos, logits,
-                                  _token_mask_for(spec, tables, pos), P)
+                ids, cos, ctl = update(masked, masked, pos, logits,
+                                       _token_mask_for(spec, tables, pos), P)
             step += n
-        return ids, cos
+        return ids, cos, ctl
 
     # span and parallel sweep every slot under one bound: the prompt-only
     # prefix, which holds whatever the order
@@ -203,9 +307,9 @@ def _iteration(spec: EngineSpec, bert: BertForMaskedLM, clip: CLIPModel,
             logits_span = _sentence_logits(spec, bert, ids, start, size)
             for j in range(size):
                 pos = slot(start + j)
-                ids, cos = update(ids, ids, pos, logits_span[:, j],
-                                  _token_mask_for(spec, tables, pos), P0)
-        return ids, cos
+                ids, cos, ctl = update(ids, ids, pos, logits_span[:, j],
+                                       _token_mask_for(spec, tables, pos), P0)
+        return ids, cos, ctl
 
     if spec.order_kind == "parallel":
         base = ids  # candidates are built from the iteration-start rows
@@ -214,9 +318,9 @@ def _iteration(spec: EngineSpec, bert: BertForMaskedLM, clip: CLIPModel,
         logits_all = _sentence_logits(spec, bert, ids, 0, spec.sentence_len)
         mask_last = tables["mask_last"][None, :].expand(B, -1)
         for kk in range(spec.sentence_len):
-            ids, cos = update(base, ids, slot(kk), logits_all[:, kk],
-                              mask_last, P0)
-        return ids, cos
+            ids, cos, ctl = update(base, ids, slot(kk), logits_all[:, kk],
+                                   mask_last, P0)
+        return ids, cos, ctl
 
     raise ValueError(f"unknown order kind {spec.order_kind!r}")
 
@@ -224,18 +328,21 @@ def _iteration(spec: EngineSpec, bert: BertForMaskedLM, clip: CLIPModel,
 def run_generation(spec: EngineSpec, bert: BertForMaskedLM, clip: CLIPModel,
                    tables: Dict[str, torch.Tensor], hyper: Dict[str, float],
                    image_embeds: torch.Tensor, init_ids: torch.Tensor,
-                   positions, span_sizes=None) -> Generation:
+                   positions, span_sizes=None,
+                   host: HostCalls = HostCalls()) -> Generation:
     """The whole multi-iteration generation. ``positions``: (I, steps, B)
     on the device for a single-kind schedule; (I, n_spans) span starts on
     the host, with ``span_sizes`` (I, n_spans) beside them, for the span
-    order; (I, 1), unread, for the parallel order. Best tracking:
-    strictly-greater update on each iteration's cosine, starting at 0."""
+    order; (I, 1), unread, for the parallel order. ``host`` carries the
+    exact modes' callables. Best tracking: strictly-greater update on each
+    iteration's cosine, starting at 0."""
     # with one prefix chunk the shared prefix is BOS + prompt, constant for
     # the whole generation: its K/V are computed once here
     prefix_kvs = None
     chunks = spec.prefix_chunks
     if (chunks is not None and len(chunks) == 1
-            and 2 <= chunks[0][0] < spec.clip_len - 1):
+            and 2 <= chunks[0][0] < spec.clip_len - 1
+            and not spec.exact_bridge):
         P0 = chunks[0][0]
         pref_row, _ = assemble_clip_ids(
             init_ids[:, 1:spec.seq_len - 1], tables["bridge_ids"],
@@ -247,18 +354,19 @@ def run_generation(spec: EngineSpec, bert: BertForMaskedLM, clip: CLIPModel,
     ids = init_ids
     best_ids = init_ids
     best_cos = torch.zeros(B, device=init_ids.device)
-    iter_ids, iter_cos = [], []
+    iter_ids, iter_cos, iter_ctl = [], [], []
     rows = positions
     if spec.order_kind == "span":
         rows = [(starts.tolist(), sizes.tolist())
                 for starts, sizes in zip(positions, span_sizes)]
     for row in rows:
-        ids, cos = _iteration(spec, bert, clip, tables, hyper, image_embeds,
-                              ids, row, prefix_kvs)
+        ids, cos, ctl = _iteration(spec, bert, clip, tables, hyper,
+                                   image_embeds, ids, row, prefix_kvs, host)
         improved = best_cos < cos
         best_cos = torch.where(improved, cos, best_cos)
         best_ids = torch.where(improved[:, None], ids, best_ids)
         iter_ids.append(ids)
         iter_cos.append(cos)
-    return Generation(torch.stack(iter_ids), torch.stack(iter_cos), best_ids,
-                      best_cos)
+        iter_ctl.append(ctl)
+    return Generation(torch.stack(iter_ids), torch.stack(iter_cos),
+                      torch.stack(iter_ctl), best_ids, best_cos)

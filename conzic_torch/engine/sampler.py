@@ -1,9 +1,12 @@
 """High-level captioning API with the reference's result contract.
 
-Counterpart of ``conzic_tpu/engine/sampler.py`` for free captioning:
-``Captioner`` owns the towers, tokenizers and tables, and ``run`` returns a
-``GenerationResult`` whose ``gen_texts_list`` holds one caption list per
-iteration followed by the best-by-cosine list at ``[-1]``.
+Counterpart of ``conzic_tpu/engine/sampler.py``: ``Captioner`` owns the
+towers, tokenizers and tables, and ``run`` returns a ``GenerationResult``
+whose ``gen_texts_list`` holds one caption list per iteration followed by
+the best-by-cosine list at ``[-1]``. ``generate_caption`` and
+``control_generate_caption`` are the reference's entry functions, returning
+``(gen_texts_list, clip_score_sequence)``: ``[-2]`` is the last iteration's
+caption and ``[-1]`` the best one.
 
 The entry points run on the CUDA device unless the caller names another
 device; they raise when CUDA is missing rather than fall back to the CPU.
@@ -12,23 +15,38 @@ device; they raise when CUDA is missing rather than fall back to the CPU.
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
+import os
 import tempfile
 import time
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from conzic_torch.config import ConzicConfig
-from conzic_torch.engine.gibbs import EngineSpec, run_generation
+from conzic_torch.engine.gibbs import (
+    EngineSpec,
+    HostCalls,
+    host_bridge_fn,
+    host_ctl_fn,
+    run_generation,
+)
 from conzic_torch.engine.orders import build_schedule
 from conzic_torch.models.bert import BertForMaskedLM
+from conzic_torch.models.checkpoint import load_tiny_checkpoint
 from conzic_torch.models.clip import CLIPModel
 from conzic_torch.models.configs import BertConfig, CLIPConfig
 from conzic_torch.models.convert import from_jax_params
 from conzic_torch.text.bpe import CLIPBPETokenizer
 from conzic_torch.text.bridge import build_bridge_table
+from conzic_torch.text.lexicons import (
+    build_pos_table,
+    build_sentiment_table,
+    template_matrix,
+)
 from conzic_torch.text.vocab import (
     build_token_masks,
     load_stop_words_file,
@@ -38,6 +56,7 @@ from conzic_torch.text.vocab import (
 from conzic_torch.text.wordpiece import WordPieceTokenizer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+CTLS = ("sentiment", "pos")
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -76,7 +95,7 @@ class GenerationResult:
     gen_texts_list: List[List[str]]  # per-iteration captions + best at [-1]
     clip_score_sequence: List[List[float]]
     iter_ids: np.ndarray  # (I, B, S)
-    iter_ctl: np.ndarray  # (I, B); zeros: free captioning has no control
+    iter_ctl: np.ndarray  # (I, B) control score of the last commit; 0 free
     best_ids: np.ndarray  # (B, S)
     best_cos: np.ndarray  # (B,)
     elapsed_s: float
@@ -97,6 +116,9 @@ class Captioner:
             wp.vocab, extra_stop_words=self.cfg.add_extra_stopwords,
             stop_words=stop_words)
         self.bridge = build_bridge_table(wp, bpe)
+        # the exact modes' host callables, built on first use
+        self._host_bridges: Dict[int, object] = {}
+        self._host_ctls: Dict[tuple, object] = {}
         # the prefix-K/V bound assumes every selectable token adds >= 1
         # CLIP piece; a user stop-words file may leave empty ones selectable
         self._mask_allows_empty_piece = bool(
@@ -181,6 +203,23 @@ class Captioner:
             clip_params)
         return cls(bert, clip, wp, bpe, config, device)
 
+    @classmethod
+    def from_tiny_dir(cls, config: Optional[ConzicConfig], path: str,
+                      device: Union[str, torch.device] = "cuda"
+                      ) -> "Captioner":
+        """A checkpoint directory of the JAX package's
+        ``models/checkpoint.py`` (``conzic_tiny.json``, both towers' flax
+        msgpack, both tokenizers' files), read without flax."""
+        bert_config, bert_params, clip_config, clip_params, _ = (
+            load_tiny_checkpoint(path))
+        wp = WordPieceTokenizer.from_vocab_file(
+            os.path.join(path, "vocab.txt"))
+        bpe = CLIPBPETokenizer.from_files(
+            os.path.join(path, "bpe_vocab.json"),
+            os.path.join(path, "bpe_merges.txt"))
+        return cls.from_jax_params(bert_config, bert_params, clip_config,
+                                   clip_params, wp, bpe, config, device)
+
     # ------------------------------------------------------------------
     def encode_images(self, pixels) -> torch.Tensor:
         """Preprocessed NHWC pixels (B, H, W, C) or (H, W, C) -> (B, D)
@@ -205,6 +244,38 @@ class Captioner:
     def seed_len(self, prompt: str) -> int:
         """[CLS] + prompt length, from an actual init encoding."""
         return int(len(self.init_ids(prompt, 1, 1)[0])) - 2
+
+    def _ensure_ctl_tables(self) -> None:
+        """The control tables, built on first use: per-token sentiment
+        valence and POS tag over the vocabulary, and the template matrix
+        of ``cfg.pos_type``."""
+        if "senti" in self.tables:
+            return
+        vocab, dev = self.wp.vocab, self.device
+        self.tables["senti"] = torch.from_numpy(
+            build_sentiment_table(vocab)).to(dev)
+        self.tables["pos"] = torch.from_numpy(build_pos_table(vocab)).to(dev)
+        self.tables["template"] = torch.from_numpy(
+            template_matrix(self.cfg.pos_type)).to(dev)
+
+    def _get_host_bridge(self, clip_len: int):
+        """``bridge_mode="exact"``'s host callable, one per context
+        length."""
+        fn = self._host_bridges.get(clip_len)
+        if fn is None:
+            fn = self._host_bridges[clip_len] = host_bridge_fn(
+                self.wp, self.bpe, clip_len)
+        return fn
+
+    def _get_host_ctl(self, ctl: str, negative: bool, template):
+        """``ctl_mode="exact"``'s host callable, one per control, polarity
+        and POS template."""
+        key = (ctl, negative, json.dumps(template))
+        fn = self._host_ctls.get(key)
+        if fn is None:
+            fn = self._host_ctls[key] = host_ctl_fn(self.wp, ctl, negative,
+                                                    template)
+        return fn
 
     def _prefix_chunks(self, order: str, init_row: np.ndarray,
                        seed_len: int, max_len: int):
@@ -235,7 +306,10 @@ class Captioner:
         return pad if pad > L else 0
 
     def _spec(self, seed_len: int, max_len: int, top_k: int,
-              prefix_chunks, order_kind: str = "single") -> EngineSpec:
+              prefix_chunks, order_kind: str = "single",
+              ctl: Optional[str] = None,
+              negative: bool = False) -> EngineSpec:
+        exact = self.cfg.bridge_mode == "exact"
         row_chunk = self.cfg.clip_row_chunk
         budget = self.cfg.clip_token_budget
         if row_chunk and budget and self.cfg.clip_len > 48:
@@ -250,26 +324,34 @@ class Captioner:
             clip_bos_id=self.bridge.bos_id,
             clip_eos_id=self.bridge.eos_id,
             clip_pad_id=self.bridge.pad_id,
-            prefix_chunks=prefix_chunks,
+            # the exact bridge's rows share no provable prefix
+            prefix_chunks=None if exact else prefix_chunks,
             clip_row_chunk=row_chunk,
             clip_pad_to=self._clip_pad_to(),
             order_kind=order_kind,
+            ctl=ctl,
+            negative=negative,
+            ctl_mode=self.cfg.ctl_mode if ctl is not None else "table",
+            exact_bridge=exact,
         )
 
     def run(self, image_embeds, *, prompt: str, max_len: int, top_k: int,
             temperature: float, max_iter: int, alpha: float, beta: float,
-            order: str = "sequential", ctl: Optional[str] = None,
+            gamma: float = 0.0, order: str = "sequential",
+            ctl: Optional[str] = None, negative: bool = False,
             rng: Optional[np.random.RandomState] = None,
-            n_samples: int = 1) -> GenerationResult:
+            n_samples: int = 1, pos_template=None) -> GenerationResult:
         """One full generation; snapshots are decoded on the host after it.
 
-        ``n_samples > 1`` runs independent samples as extra batch rows
-        (sample-major), each with its own schedule drawn from ``rng`` in
-        turn, so the result equals ``n_samples`` separate calls; unpack it
-        with :meth:`split_samples`."""
-        if ctl is not None:
-            raise NotImplementedError(
-                f"ctl={ctl!r}: controlled generation is not ported yet")
+        ``ctl`` ("sentiment" or "pos") adds ``gamma`` times the control
+        energy (and, for sentiment, the repeat penalty); ``negative`` flips
+        the sentiment; ``pos_template`` replaces ``cfg.pos_type`` for this
+        call only. ``n_samples > 1`` runs independent samples as extra
+        batch rows (sample-major), each with its own schedule drawn from
+        ``rng`` in turn, so the result equals ``n_samples`` separate calls;
+        unpack it with :meth:`split_samples`."""
+        if ctl is not None and ctl not in CTLS:
+            raise ValueError(f"unknown ctl {ctl!r} (None or one of {CTLS})")
         rng = rng or np.random.RandomState(self.cfg.seed)
         top_k = min(top_k, self.wp.vocab_size)
         scheds = [build_schedule(order, max_len, max_iter, rng)
@@ -278,8 +360,22 @@ class Captioner:
         seed_len = init_row.shape[1] - max_len - 1
         kind = scheds[0].kind
         spec = self._spec(seed_len, max_len, top_k, self._prefix_chunks(
-            order, init_row, seed_len, max_len), kind)
+            order, init_row, seed_len, max_len), kind, ctl, negative)
         dev = self.device
+        tables, host = self.tables, HostCalls()
+        if spec.exact_bridge:
+            host = host._replace(bridge=self._get_host_bridge(spec.clip_len))
+        if ctl is not None and spec.ctl_mode == "exact":
+            template = (pos_template if pos_template is not None
+                        else self.cfg.pos_type) if ctl == "pos" else None
+            host = host._replace(ctl=self._get_host_ctl(ctl, negative,
+                                                        template))
+        elif ctl is not None:
+            self._ensure_ctl_tables()
+            if pos_template is not None:
+                # this call's template; the shared tables stay as they are
+                tables = {**self.tables, "template": torch.from_numpy(
+                    template_matrix(pos_template)).to(dev)}
         if not isinstance(image_embeds, torch.Tensor):
             image_embeds = torch.tensor(np.asarray(image_embeds, np.float32))
         image_embeds = image_embeds.to(dev, torch.float32)
@@ -302,13 +398,14 @@ class Captioner:
             # rows, kept on the host, where the sweep's loops read them
             positions = scheds[0].positions
             span_sizes = scheds[0].span_sizes
-        hyper = {"alpha": alpha, "beta": beta, "temperature": temperature}
+        hyper = {"alpha": alpha, "beta": beta, "gamma": gamma,
+                 "temperature": temperature}
         t0 = time.perf_counter()
         with torch.inference_mode():
             gen = run_generation(
-                spec, self.bert_model, self.clip_model, self.tables, hyper,
+                spec, self.bert_model, self.clip_model, tables, hyper,
                 image_embeds, torch.from_numpy(init).long().to(dev),
-                positions, span_sizes)
+                positions, span_sizes, host)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         elapsed = time.perf_counter() - t0
@@ -318,6 +415,7 @@ class Captioner:
         """Decode snapshots into the reference-contract result."""
         iter_ids = gen.iter_ids.cpu().numpy().astype(np.int32)
         iter_cos = gen.iter_cos.cpu().numpy()
+        iter_ctl = gen.iter_ctl.cpu().numpy()
         best_ids = gen.best_ids.cpu().numpy().astype(np.int32)
         best_cos = gen.best_cos.cpu().numpy()
         gen_texts_list = [self.wp.batch_decode(ids, skip_special_tokens=True)
@@ -334,7 +432,7 @@ class Captioner:
             gen_texts_list=gen_texts_list,
             clip_score_sequence=clip_score_sequence,
             iter_ids=iter_ids,
-            iter_ctl=np.zeros(iter_cos.shape, np.float32),
+            iter_ctl=iter_ctl,
             best_ids=best_ids,
             best_cos=best_cos,
             elapsed_s=elapsed,
@@ -359,3 +457,105 @@ class Captioner:
                 elapsed_s=result.elapsed_s,
             ))
         return out
+
+    def log_iterations(self, logger: logging.Logger, img_name: Sequence[str],
+                       result: GenerationResult,
+                       with_ctl: bool = False) -> None:
+        """Per-iteration logs in the reference's format, written after the
+        run."""
+        for i in range(result.iter_ids.shape[0]):
+            for_print = self.wp.batch_decode(result.iter_ids[i])
+            for jj in range(result.iter_ids.shape[1]):
+                cos = result.clip_score_sequence[i][jj]
+                if with_ctl:
+                    logger.info(
+                        f"iter {i + 1}, The {jj + 1}-th image: "
+                        f"{img_name[jj]}, clip score {cos:.3f}, ctl score "
+                        f"{result.iter_ctl[i][jj]:.3f}: " + for_print[jj])
+                else:
+                    logger.info(
+                        f"iter {i + 1}, The {jj + 1}-th image: "
+                        f"{img_name[jj]},clip score {cos:.3f}: "
+                        + for_print[jj])
+
+
+# ---------------------------------------------------------------------------
+# The reference's entry functions
+# ---------------------------------------------------------------------------
+
+
+def _image_embeds(captioner: Captioner, image_instance, batch_size: int):
+    """(B, D) image embeddings as given, or preprocessed NHWC pixels:
+    (B, H, W, C), or one (H, W, C) image that is captioned ``batch_size``
+    times, as the reference replicates a single image."""
+    x = image_instance
+    if not isinstance(x, (torch.Tensor, np.ndarray)):
+        return captioner.encode_images(x)  # PIL images: not ported yet
+    if x.ndim == 2:
+        return x
+    if x.ndim == 3:
+        x = x[None].repeat(batch_size, *([1] * x.ndim)) if isinstance(
+            x, torch.Tensor) else np.repeat(x[None], batch_size, axis=0)
+    return captioner.encode_images(x)
+
+
+def _log_captions(logger: logging.Logger, img_name, result, start: float):
+    logger.info("Finished in %.3fs" % (time.time() - start))
+    final_caption = result.gen_texts_list[-2]
+    best_caption = result.gen_texts_list[-1]
+    for i in range(len(final_caption)):
+        logger.info(f"The {i + 1}-th image: {img_name[i]}")
+        logger.info(f"final caption: {final_caption[i]}")
+        logger.info(f"best caption: {best_caption[i]}")
+
+
+def generate_caption(img_name, captioner: Captioner, image_instance,
+                     logger: logging.Logger, prompt: str = "",
+                     batch_size: int = 1, max_len: int = 15,
+                     top_k: int = 100, temperature: float = 1.0,
+                     max_iter: int = 500, alpha: float = 0.7,
+                     beta: float = 1.0, generate_order: str = "sequential",
+                     rng: Optional[np.random.RandomState] = None):
+    """Free captioning; returns (gen_texts_list, clip_score_sequence)."""
+    start = time.time()
+    result = captioner.run(
+        _image_embeds(captioner, image_instance, batch_size), prompt=prompt,
+        max_len=max_len, top_k=top_k, temperature=temperature,
+        max_iter=max_iter, alpha=alpha, beta=beta, order=generate_order,
+        rng=rng)
+    if captioner.cfg.verbose:
+        captioner.log_iterations(logger, img_name, result)
+    _log_captions(logger, img_name, result, start)
+    return result.gen_texts_list, result.clip_score_sequence
+
+
+def control_generate_caption(
+        img_name, captioner: Captioner, image_instance,
+        logger: logging.Logger, prompt: str = "", batch_size: int = 10,
+        max_len: int = 25, top_k: int = 100, temperature: float = 1.0,
+        max_iter: int = 500, alpha: float = 0.7, beta: float = 1.0,
+        gamma: float = 5.0, ctl_type: str = "sentiment",
+        style_type: str = "positive", pos_type=None,
+        generate_order: str = "sequential",
+        rng: Optional[np.random.RandomState] = None):
+    """Controlled captioning; returns (gen_texts_list,
+    clip_score_sequence). Sentiment runs the sequential or shuffle order
+    (any other falls back to shuffle); POS runs the sequential order
+    only, whatever is asked."""
+    start = time.time()
+    if ctl_type == "sentiment":
+        order = (generate_order if generate_order in ("sequential", "shuffle")
+                 else "shuffle")
+        ctl, negative = "sentiment", style_type == "negative"
+    else:
+        order, ctl, negative = "sequential", "pos", False
+    result = captioner.run(
+        _image_embeds(captioner, image_instance, batch_size), prompt=prompt,
+        max_len=max_len, top_k=top_k, temperature=temperature,
+        max_iter=max_iter, alpha=alpha, beta=beta, gamma=gamma, order=order,
+        ctl=ctl, negative=negative, rng=rng,
+        pos_template=pos_type if ctl == "pos" else None)
+    if captioner.cfg.verbose:
+        captioner.log_iterations(logger, img_name, result, with_ctl=True)
+    _log_captions(logger, img_name, result, start)
+    return result.gen_texts_list, result.clip_score_sequence

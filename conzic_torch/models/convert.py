@@ -2,8 +2,8 @@
 
 The inverse direction of ``conzic_tpu/models/convert.py``: ``from_jax_params``
 takes the flax parameter tree of a ``conzic_tpu`` model (nested dicts of
-numpy arrays, unrolled ``layer_i`` layers) and loads it into the matching
-port module. Leaves keep their stored type (a checkpoint saved in bf16 stays
+numpy arrays or CPU tensors, unrolled ``layer_i`` layers) and loads it into
+the matching port module. Leaves keep their stored type (a checkpoint saved in bf16 stays
 bf16, and the modules cast on use exactly as the flax modules do).
 
 Layout rules:
@@ -33,8 +33,11 @@ from conzic_torch.models.layers import (
 
 
 def _tensor(a) -> torch.Tensor:
-    """numpy leaf -> CPU tensor in the same type (bf16 leaves, stored by
-    ml_dtypes, go through fp32, which holds every bf16 value exactly)."""
+    """numpy or torch leaf -> CPU tensor in the same type (bf16 numpy
+    leaves, stored by ml_dtypes, go through fp32, which holds every bf16
+    value exactly; the checkpoint reader gives tensors already)."""
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)

@@ -235,7 +235,7 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("bridge_mode", "exact"), ("prune_k", 4), ("clip_window", 16),
+    ("prune_k", 4), ("clip_window", 16),
     ("quant", "int8"), ("topk_mode", "approx"), ("mask_impl", "compare"),
     ("scan_layers", True), ("mesh_data_axis", 2),
 ])
@@ -244,12 +244,21 @@ def test_unported_knobs_raise(knob, value):
         ConzicConfig(**{knob: value}).validate()
 
 
+@pytest.mark.parametrize("knob", ["bridge_mode", "ctl_mode"])
+def test_unknown_host_modes_raise(knob):
+    ConzicConfig(**{knob: "exact"}).validate()
+    with pytest.raises(ValueError, match=knob):
+        ConzicConfig(**{knob: "approximate"}).validate()
+
+
 def test_controlled_generation_raises():
+    """An unknown control raises; "sentiment" and "pos" run
+    (tests/test_torch_control_engine.py)."""
     _, pc = _pair("random")
-    with pytest.raises(NotImplementedError, match="ctl"):
+    with pytest.raises(ValueError, match="ctl"):
         pc.run(_embeds("random", 1), prompt="Image of a", max_len=3, top_k=4,
                temperature=0.1, max_iter=1, alpha=0.02, beta=2.0,
-               ctl="sentiment")
+               ctl="style")
 
 
 def test_port_imports_no_jax():
