@@ -31,9 +31,20 @@ Phases, each printing its own lines:
    control (gamma 5.0), whose launch counts must be the free run's, and
    one iteration each of the exact modes (sentiment ``ctl_mode="exact"``
    and ``bridge_mode="exact"``, the latter with full-row counts);
+   After the three runs, the full-width towers are written as two HF
+   checkpoint directories (config.json, model.safetensors, tokenizer
+   files) and read back by ``Captioner.from_pretrained``: every parameter
+   bit-equal, equal caption ids;
 5. trained checkpoint: ``trained_tiny/`` through the port's own reader
    (``Captioner.from_tiny_dir``), sentiment-positive and -negative table
-   control on seeded pixels in fp32, card against CPU.
+   control on seeded pixels in fp32, card against CPU;
+6. command line: ``api.run.main`` at full width over 32 seeded scenes of
+   ``data/synthetic.py`` written as PNG (the main path's settings; the
+   results tree complete, the launch counts the engine's), then
+   ``api.demo.main`` on ``trained_tiny/`` over examples/girl.jpg on the
+   card and on the CPU (equal caption lines); then, for information, bf16
+   against fp32 caption ids on trained_tiny/ and trained_mid/ over their
+   own rendered scenes, and sentiment control's effect on trained_mid/.
 
 The last two lines are a JSON object with one entry per kernel (its
 ``launches`` are those of the main-path run under the ``attn_impl`` that the
@@ -59,6 +70,8 @@ import copy
 import dataclasses
 import json
 import os
+import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -67,9 +80,13 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 import torch.nn.functional as F
+from PIL import Image
 
 from conzic_torch import energies
+from conzic_torch.api import demo as demo_cli
+from conzic_torch.api import run as run_cli
 from conzic_torch.config import ATTN_IMPLS, ConzicConfig
+from conzic_torch.data import synthetic
 from conzic_torch.engine.sampler import Captioner
 from conzic_torch.eval import ndiv
 from conzic_torch.eval.sentiment_eval import (
@@ -92,9 +109,14 @@ from conzic_torch.kernels.masked_attention import (
 )
 from conzic_torch.kernels.timing import time_ms
 from conzic_torch.models.configs import BertConfig, CLIPConfig
+from conzic_torch.models.convert import hf_names
 from conzic_torch.ops.attention import attention_keep_mask
+from conzic_torch.runtime.image import preprocess_pil, preprocess_torch
 from conzic_torch.text.lexicons import UNIVERSAL_TAGS, _nltk_available
-from conzic_torch.text.vocab import make_fullsize_wordpiece_vocab
+from conzic_torch.text.vocab import (
+    make_fullsize_wordpiece_vocab,
+    make_test_bpe_files,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense tensor-core bf16
@@ -142,6 +164,8 @@ DEVICE = "cuda"
 MAIN = dict(batch=32, top_k=200, sentence_len=10, clip_len=24,
             prompt="Image of a", row_chunk=800, kv_chunk=16)
 GAMMA = 5.0  # the control weight of the controlled runs
+# the trained-weights precision runs; their CPU reference bounds the size
+PRECISION = dict(scenes=8, top_k=48, sentence_len=8, iters=2)
 TRAINED_TINY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "trained_tiny")
 # a per-call POS template: list slots, a string slot (a substring test in
@@ -987,6 +1011,325 @@ def phase_trained() -> None:
                                  f"({label})")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the command-line path
+# ---------------------------------------------------------------------------
+
+
+def scratch_dir(name: str) -> str:
+    """An empty directory under the git-ignored build/ of this checkout."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def cli_call(fn, argv, cwd: str):
+    """``fn(argv)`` with ``cwd`` as the working directory (the CLIs write
+    ``logger/`` and ``results/`` there); returns the wall time."""
+    old = os.getcwd()
+    os.chdir(cwd)
+    try:
+        t = time.perf_counter()
+        fn(argv)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        return time.perf_counter() - t
+    finally:
+        os.chdir(old)
+
+
+def log_lines(cwd: str) -> List[str]:
+    (name,) = os.listdir(os.path.join(cwd, "logger"))
+    with open(os.path.join(cwd, "logger", name), encoding="utf-8") as f:
+        return f.read().splitlines()
+
+
+def check_results_tree(work: str, iters: int, B: int) -> str:
+    """The sample's results tree: iter_0 .. iter_{iters-1} and
+    best_clipscore, each with B captions; returns its path."""
+    (tree,) = [d for d, _, files in os.walk(os.path.join(work, "results"))
+               if "best_clipscore.json" in files]
+    names = sorted(os.listdir(tree))
+    expect = sorted([f"iter_{i}.json" for i in range(iters)]
+                    + ["best_clipscore.json"])
+    if names != expect:
+        raise AssertionError(f"results tree {names} != {expect}")
+    for name in names:
+        with open(os.path.join(tree, name)) as f:
+            res = json.load(f)
+        if len(res) != B or not all(isinstance(v, str) and v
+                                    for v in res.values()):
+            raise AssertionError(f"{name}: {len(res)} captions, expected "
+                                 f"{B} strings")
+    return tree
+
+
+def phase_cli_run(iters: int, want: Dict[str, int]) -> dict:
+    """``api.run.main`` at full width over 32 seeded scenes rendered by
+    ``data/synthetic.py`` at 224 px and written as PNG: decode, preprocess
+    and generation with the main path's settings (bf16 weights, the same
+    seeded towers). The results tree must be complete and the launch
+    counts must be ``want``, the engine's structure for one generation."""
+    B = MAIN["batch"]
+    work = scratch_dir("cli_run")
+    img_dir = os.path.join(work, "images")
+    out = os.path.join(work, "out")
+    os.makedirs(img_dir)
+    os.makedirs(out)
+    images = synthetic.build_dataset(B, seed=0, image_size=224)[0]
+    for i, arr in enumerate(images):
+        Image.fromarray(arr).save(os.path.join(img_dir, f"scene_{i:02d}.png"))
+    argv = ["--random_models", "--batch_size", str(B),
+            "--candidate_k", str(MAIN["top_k"]),
+            "--sentence_len", str(MAIN["sentence_len"]),
+            "--num_iterations", str(iters), "--order", "sequential",
+            "--clip_len", str(MAIN["clip_len"]), "--samples_num", "1",
+            "--seed", "0", "--device", DEVICE, "--param_dtype", "bfloat16",
+            "--caption_img_path", img_dir]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    wall = cli_call(run_cli.main, argv, out)
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    tree = check_results_tree(out, iters, B)
+    (generation_s,) = [float(x.split()[2].rstrip("s"))
+                       for x in log_lines(out) if x.startswith("Finished in")]
+    say(f"cli run: api.run.main over {B} PNG scenes (224 px, rendered by "
+        f"data/synthetic.py), full width, k={MAIN['top_k']} "
+        f"sentence_len={MAIN['sentence_len']} iterations={iters}: tree "
+        f"{os.path.relpath(tree, out)} complete, {iters + 1} files of {B} "
+        f"captions")
+    say(f"cli run: {wall:.3f} s wall for the whole command (captioner "
+        f"build, decode, preprocess, generation), {B / wall:.4f} caps/s; "
+        f"generation with its iteration log lines (generate_caption's "
+        f"'Finished in') {generation_s:.3f} s, {B / generation_s:.4f} "
+        f"caps/s; peak memory {peak_gib:.2f} GiB; card {card_line()}")
+    say(f"launches [cli run]: {launches}; the engine's structure gives "
+        f"{want}")
+    if launches != want:
+        raise AssertionError(f"cli launch counts {launches} != {want}")
+    shutil.rmtree(work)
+    return dict(launches=launches, wall_s=wall, generation_s=generation_s,
+                peak_gib=peak_gib)
+
+
+def phase_cli_demo() -> Dict[str, int]:
+    """``api.demo.main`` on trained_tiny/ (both towers through
+    ``--lm_model`` / ``--match_model``, the trained-directory route of
+    ``from_pretrained``) over examples/girl.jpg, fp32, two fused samples,
+    on the card and on the CPU: the "final caption:" and "best caption:"
+    lines must be equal. Returns the card run's launch counts."""
+    girl = os.path.join(os.path.dirname(TRAINED_TINY), "examples",
+                        "girl.jpg")
+    argv = ["--lm_model", TRAINED_TINY, "--match_model", TRAINED_TINY,
+            "--dtype", "float32", "--order", "sequential", "--samples_num",
+            "2", "--caption_img_path", girl]
+    # the resize on the card against PIL's, at full and trained widths
+    arr = np.asarray(Image.open(girl).convert("RGB"))
+    for side in (224, 64):
+        ref = preprocess_pil(Image.fromarray(arr), side)
+        got = preprocess_torch(arr, side, device=DEVICE).cpu().numpy()
+        err = float(np.abs(got - ref).mean())
+        say(f"preprocess_torch on the card, {arr.shape[1]}x{arr.shape[0]} "
+            f"-> {side}: mean |diff| against PIL {err:.4f} (limit 0.12)")
+        if got.shape != ref.shape or err >= 0.12:
+            raise AssertionError("preprocess_torch strays from PIL")
+    lines, walls, launches = {}, {}, {}
+    for device in (DEVICE, "cpu"):
+        work = scratch_dir(f"cli_demo_{device}")
+        reset_launches()
+        walls[device] = cli_call(demo_cli.main, argv + ["--device", device],
+                                 work)
+        launches[device] = read_launches()
+        lines[device] = [x for x in log_lines(work) if x.startswith(
+            ("final caption:", "best caption:"))]
+        shutil.rmtree(work)
+    say(f"cli demo [trained_tiny, fp32, 2 fused samples]: card "
+        f"{walls[DEVICE]:.3f} s, CPU {walls['cpu']:.3f} s; launches on the "
+        f"card {launches[DEVICE]}, on the CPU {launches['cpu']}; lines equal="
+        f"{lines[DEVICE] == lines['cpu']}: {lines[DEVICE]}")
+    if len(lines[DEVICE]) != 4 or lines[DEVICE] != lines["cpu"]:
+        raise AssertionError("the demo's caption lines differ between the "
+                             "card and the CPU")
+    if (launches[DEVICE]["layer_norm"] <= 0
+            or launches[DEVICE]["masked_attention"] <= 0
+            or any(launches["cpu"].values())):
+        raise AssertionError(f"the demo on the card did not run the kernels, "
+                             f"or the CPU run did: {launches}")
+    return launches[DEVICE]
+
+
+def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """The safetensors layout: an 8-byte little-endian header length, the
+    JSON header, then each tensor's raw bytes."""
+    names = {torch.float32: "F32", torch.bfloat16: "BF16",
+             torch.float16: "F16"}
+    header, blobs, at = {}, [], 0
+    for name, t in tensors.items():
+        t = t.detach().contiguous().cpu()
+        raw = (t.view(torch.int16) if t.dtype == torch.bfloat16
+               else t).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [at, at + len(raw)]}
+        blobs.append(raw)
+        at += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def hf_config(cap: Captioner) -> tuple:
+    """HF config.json dicts of the captioner's BERT and CLIP."""
+    b, c = cap.bert_model.config, cap.clip_model.config
+    bert = {"model_type": "bert", "architectures": ["BertForMaskedLM"],
+            "vocab_size": b.vocab_size, "hidden_size": b.hidden_size,
+            "num_hidden_layers": b.num_layers,
+            "num_attention_heads": b.num_heads,
+            "intermediate_size": b.intermediate_size,
+            "max_position_embeddings": b.max_position_embeddings,
+            "type_vocab_size": b.type_vocab_size,
+            "layer_norm_eps": b.layer_norm_eps, "hidden_act": b.hidden_act,
+            "pad_token_id": b.pad_token_id}
+    t, v = c.text, c.vision
+    clip = {"model_type": "clip", "architectures": ["CLIPModel"],
+            "projection_dim": c.projection_dim,
+            "logit_scale_init_value": c.logit_scale_init,
+            "text_config": {
+                "vocab_size": t.vocab_size, "hidden_size": t.hidden_size,
+                "num_hidden_layers": t.num_layers,
+                "num_attention_heads": t.num_heads,
+                "intermediate_size": t.intermediate_size,
+                "max_position_embeddings": t.max_position_embeddings,
+                "layer_norm_eps": t.layer_norm_eps,
+                "hidden_act": t.hidden_act, "eos_token_id": t.eos_token_id},
+            "vision_config": {
+                "hidden_size": v.hidden_size, "num_hidden_layers": v.num_layers,
+                "num_attention_heads": v.num_heads,
+                "intermediate_size": v.intermediate_size,
+                "image_size": v.image_size, "patch_size": v.patch_size,
+                "layer_norm_eps": v.layer_norm_eps,
+                "hidden_act": v.hidden_act}}
+    return bert, clip
+
+
+def phase_hf_dir(cap: Captioner, pixels) -> None:
+    """The full-width captioner written as two HF checkpoint directories
+    (config.json in HF's keys, model.safetensors through the inverse of the
+    port's name table, vocab.txt and the CLIP vocab.json / merges.txt),
+    read back by ``Captioner.from_pretrained`` on the card: every parameter
+    bit-equal to its source, and one short generation with equal ids."""
+    work = scratch_dir("hf")
+    lm_dir, match_dir = os.path.join(work, "bert"), os.path.join(work, "clip")
+    t = time.perf_counter()
+    n_bytes = 0
+    for d, module, config in zip((lm_dir, match_dir),
+                                 (cap.bert_model, cap.clip_model),
+                                 hf_config(cap)):
+        os.makedirs(d)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(config, f)
+        tensors = {hf_names(module, name)[0]: p
+                   for name, p in module.named_parameters()}
+        write_safetensors(os.path.join(d, "model.safetensors"), tensors)
+        n_bytes += os.path.getsize(os.path.join(d, "model.safetensors"))
+    with open(os.path.join(lm_dir, "vocab.txt"), "w", encoding="utf-8") as f:
+        for tok in sorted(cap.wp.vocab, key=cap.wp.vocab.get):
+            f.write(tok + "\n")
+    vocab_json, merges_txt = make_test_bpe_files(match_dir)
+    os.replace(vocab_json, os.path.join(match_dir, "vocab.json"))
+    os.replace(merges_txt, os.path.join(match_dir, "merges.txt"))
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cfg = dataclasses.replace(cap.cfg, lm_model=lm_dir, match_model=match_dir)
+    loaded = Captioner.from_pretrained(cfg, device=DEVICE)
+    load_s = time.perf_counter() - t
+    n_params = 0
+    for ours, theirs in ((loaded.bert_model, cap.bert_model),
+                         (loaded.clip_model, cap.clip_model)):
+        a, b = ours.state_dict(), theirs.state_dict()
+        if list(a) != list(b):
+            raise AssertionError("the loaded towers have other parameters")
+        for key in a:
+            if a[key].dtype != b[key].dtype or not torch.equal(a[key], b[key]):
+                raise AssertionError(f"{key} differs after the HF round trip")
+            n_params += a[key].numel()
+    if loaded.wp.vocab != cap.wp.vocab or loaded.bpe.encoder != cap.bpe.encoder:
+        raise AssertionError("the loaded tokenizers differ")
+    args = run_args(max_len=MAIN["sentence_len"], top_k=16, max_iter=2,
+                    order="sequential")
+    a = cap.run(cap.encode_images(pixels[:2]), rng=np.random.RandomState(3),
+                **args)
+    b = loaded.run(loaded.encode_images(pixels[:2]),
+                   rng=np.random.RandomState(3), **args)
+    same, _, cos_err = compare_runs(a, b)
+    say(f"hf directory [{cap.cfg.attn_impl}, {cap.cfg.param_dtype}]: "
+        f"{n_bytes / 2 ** 20:.1f} MiB of safetensors written in {write_s:.2f} "
+        f"s, read by from_pretrained in {load_s:.2f} s; {n_params} "
+        f"parameters bit-equal; B=2 k=16 2 iterations: caption ids "
+        f"identical={same} max cosine diff={cos_err:.3g}")
+    if not same or cos_err != 0.0:
+        raise AssertionError("the HF round trip changed a caption")
+    del loaded
+    shutil.rmtree(work)
+
+
+def phase_trained_precision() -> None:
+    """bf16 against fp32 on trained weights (information): trained_tiny/
+    and trained_mid/ through ``from_pretrained`` caption 16 seeded scenes of
+    their own world (64 px), on the card in fp32 and in bf16 and on the CPU
+    in fp32: the share of the sentence's caption ids equal to the CPU's
+    (the card's fp32 ids must equal the CPU's on trained_tiny/, as in
+    phase 5). Then sentiment
+    table control on trained_mid/, positive and negative, on the card in
+    fp32: the mean committed control score."""
+    images = synthetic.build_dataset(PRECISION["scenes"], seed=11,
+                                     image_size=64)[0]
+    pil = [Image.fromarray(a) for a in images]
+    repo = os.path.dirname(TRAINED_TINY)
+    args = run_args(max_len=PRECISION["sentence_len"],
+                    top_k=PRECISION["top_k"], max_iter=PRECISION["iters"],
+                    order="sequential")
+    for world in ("trained_tiny", "trained_mid"):
+        path = os.path.join(repo, world)
+        ids = {}
+        for label, device, dtype in (("CPU fp32", "cpu", "float32"),
+                                     ("card fp32", DEVICE, "float32"),
+                                     ("card bf16", DEVICE, "bfloat16")):
+            cfg = ConzicConfig(dtype=dtype, param_dtype=dtype,
+                               lm_model=path, match_model=path)
+            cap = Captioner.from_pretrained(cfg, device=device)
+            res = cap.run(cap.encode_images(pil), rng=np.random.RandomState(5),
+                          **args)
+            ids[label] = res.iter_ids[:, :, -args["max_len"] - 1:-1]
+            if world == "trained_mid" and label == "card fp32":
+                for negative in (False, True):
+                    ctl = cap.run(cap.encode_images(pil),
+                                  rng=np.random.RandomState(5), gamma=GAMMA,
+                                  ctl="sentiment", negative=negative, **args)
+                    say(f"trained precision [{world}, sentiment "
+                        f"{'negative' if negative else 'positive'} table, "
+                        f"card fp32]: mean committed iter_ctl "
+                        f"{float(ctl.iter_ctl.mean()):.4f}, last iteration "
+                        f"{float(ctl.iter_ctl[-1].mean()):.4f}; first caption "
+                        f"{ctl.gen_texts_list[-2][0]!r}")
+            del cap
+        ref = ids["CPU fp32"]
+        say(f"trained precision [{world}, {PRECISION}]: caption ids equal to "
+            f"the CPU's fp32 run: card fp32 "
+            f"{float((ids['card fp32'] == ref).mean()):.4f}, card bf16 "
+            f"{float((ids['card bf16'] == ref).mean()):.4f} (information)")
+        if world == "trained_tiny" and (ids["card fp32"] != ref).any():
+            raise AssertionError("trained_tiny fp32 ids differ on the card")
+    torch.cuda.empty_cache()
+
+
 # kernel-name fragments -> the part of a Gibbs step they belong to
 PROFILE_GROUPS = (
     ("layer_norm kernel", ("layer_norm_kernel",)),
@@ -1197,6 +1540,9 @@ def main(argv=None) -> int:
             t = time.perf_counter()
             phase_exact(cap, shape, pixels, main[impl], controlled)
             say(f"phase exact modes ok ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    phase_hf_dir(cap, pixels)
+    say(f"phase hf directory ok ({time.perf_counter() - t:.1f} s)")
     del cap
     torch.cuda.empty_cache()
 
@@ -1206,7 +1552,17 @@ def main(argv=None) -> int:
 
     t = time.perf_counter()
     phase_trained()
-    say(f"phase trained checkpoint ok ({time.perf_counter() - t:.1f} s); "
+    say(f"phase trained checkpoint ok ({time.perf_counter() - t:.1f} s)")
+
+    # one generation of the main path's settings: phase_main checked that
+    # pallas's counts are what the engine's structure gives
+    t = time.perf_counter()
+    cli = phase_cli_run(args.iters, main["pallas"]["launches"])
+    phase_cli_demo()
+    say(f"phase cli ok ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    phase_trained_precision()
+    say(f"phase trained precision ok ({time.perf_counter() - t:.1f} s); "
         f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -1217,6 +1573,7 @@ def main(argv=None) -> int:
             launches=main[ROUTE_OF[name]]["launches"][name],
             launches_by_attn_impl={impl: run["launches"][name]
                                    for impl, run in main.items()},
+            launches_cli_run=cli["launches"][name],
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
             bound_ms=s["bound_ms"], bound_by=s["bound_by"],
             library_ms=s["library_ms"],

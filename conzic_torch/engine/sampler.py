@@ -36,10 +36,19 @@ from conzic_torch.engine.gibbs import (
 )
 from conzic_torch.engine.orders import build_schedule
 from conzic_torch.models.bert import BertForMaskedLM
-from conzic_torch.models.checkpoint import load_tiny_checkpoint
+from conzic_torch.models.checkpoint import (
+    is_tiny_checkpoint,
+    load_tiny_checkpoint,
+)
 from conzic_torch.models.clip import CLIPModel
-from conzic_torch.models.configs import BertConfig, CLIPConfig
-from conzic_torch.models.convert import from_jax_params
+from conzic_torch.models.configs import BertConfig, CLIPConfig, load_hf_config
+from conzic_torch.models.convert import (
+    from_hf_state_dict,
+    from_jax_params,
+    load_bert,
+    load_clip,
+)
+from conzic_torch.runtime.image import preprocess_batch_pil
 from conzic_torch.text.bpe import CLIPBPETokenizer
 from conzic_torch.text.bridge import build_bridge_table
 from conzic_torch.text.lexicons import (
@@ -47,6 +56,7 @@ from conzic_torch.text.lexicons import (
     build_sentiment_table,
     template_matrix,
 )
+from conzic_torch.text.roberta_bpe import RobertaBPETokenizer
 from conzic_torch.text.vocab import (
     build_token_masks,
     load_stop_words_file,
@@ -204,6 +214,44 @@ class Captioner:
         return cls(bert, clip, wp, bpe, config, device)
 
     @classmethod
+    def from_pretrained(cls, config: ConzicConfig,
+                        device: Union[str, torch.device] = "cuda"
+                        ) -> "Captioner":
+        """Towers and tokenizers from the local checkpoint directories
+        ``config.lm_model`` (HF BERT or RoBERTa masked LM) and
+        ``config.match_model`` (HF CLIP). A directory of the JAX package's
+        trained checkpoints (``conzic_tiny.json``) carries both towers and
+        goes to :meth:`from_tiny_dir`."""
+        if is_tiny_checkpoint(config.lm_model):
+            # a trained directory holds both towers: a different
+            # match_model would be silently replaced by its CLIP
+            if config.match_model not in (None, "", config.lm_model,
+                                          ConzicConfig.match_model):
+                raise ValueError(
+                    f"lm_model={config.lm_model!r} is a trained-tiny "
+                    f"checkpoint (single artifact with both towers) but "
+                    f"match_model={config.match_model!r} names a "
+                    f"different directory — pass the same path for both "
+                    f"(or leave match_model at its default).")
+            return cls.from_tiny_dir(config, config.lm_model, device)
+        device = resolve_device(device)
+        dtype = _DTYPES[config.dtype]
+        bert_config, bert_sd = load_bert(config.lm_model)
+        clip_config, clip_sd = load_clip(config.match_model)
+        bert = from_hf_state_dict(
+            BertForMaskedLM(bert_config, dtype=dtype,
+                            attn_impl=config.attn_impl), bert_sd)
+        clip = from_hf_state_dict(
+            CLIPModel(clip_config, dtype=dtype, attn_impl=config.attn_impl),
+            clip_sd)
+        if load_hf_config(config.lm_model).get("model_type") == "roberta":
+            wp = RobertaBPETokenizer.from_pretrained(config.lm_model)
+        else:
+            wp = WordPieceTokenizer.from_pretrained(config.lm_model)
+        bpe = CLIPBPETokenizer.from_pretrained(config.match_model)
+        return cls(bert, clip, wp, bpe, config, device)
+
+    @classmethod
     def from_tiny_dir(cls, config: Optional[ConzicConfig], path: str,
                       device: Union[str, torch.device] = "cuda"
                       ) -> "Captioner":
@@ -222,12 +270,12 @@ class Captioner:
 
     # ------------------------------------------------------------------
     def encode_images(self, pixels) -> torch.Tensor:
-        """Preprocessed NHWC pixels (B, H, W, C) or (H, W, C) -> (B, D)
-        image embeddings on the device."""
+        """A list of PIL images, or preprocessed NHWC pixels (B, H, W, C) or
+        (H, W, C) -> (B, D) image embeddings on the device. The image tower
+        runs once per generation."""
         if isinstance(pixels, (list, tuple)):
-            raise NotImplementedError(
-                "image preprocessing is not ported yet: pass preprocessed "
-                "NHWC pixels")
+            pixels = preprocess_batch_pil(
+                pixels, self.clip_model.config.vision.image_size)
         if not isinstance(pixels, torch.Tensor):
             pixels = torch.tensor(np.asarray(pixels, np.float32))
         if pixels.dim() == 3:
@@ -485,12 +533,15 @@ class Captioner:
 
 
 def _image_embeds(captioner: Captioner, image_instance, batch_size: int):
-    """(B, D) image embeddings as given, or preprocessed NHWC pixels:
-    (B, H, W, C), or one (H, W, C) image that is captioned ``batch_size``
-    times, as the reference replicates a single image."""
+    """(B, D) image embeddings as given; or images to encode: a list of PIL
+    images, preprocessed NHWC pixels (B, H, W, C), or one image, PIL or
+    (H, W, C), that is captioned ``batch_size`` times, as the reference
+    replicates a single image."""
     x = image_instance
+    if isinstance(x, (list, tuple)):
+        return captioner.encode_images(x)
     if not isinstance(x, (torch.Tensor, np.ndarray)):
-        return captioner.encode_images(x)  # PIL images: not ported yet
+        return captioner.encode_images([x] * batch_size)  # one PIL image
     if x.ndim == 2:
         return x
     if x.ndim == 3:

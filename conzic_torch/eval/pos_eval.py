@@ -1,27 +1,45 @@
 """POS-template evaluation (host side).
 
-Vendored from conzic_tpu/eval/pos_eval.py (its command line waits for the
-port's CLIs): tag captions with the universal tagset, score the
-template-match accuracy (matched slots / template length) and histogram
-the tag at a word position. NLTK's tagger runs when its data is installed,
-else the rule tagger of ``text.lexicons``.
+Counterpart of ``conzic_tpu/eval/pos_eval.py``: tag captions with the
+universal tagset, score the template-match accuracy (matched slots /
+template length) and histogram the tag at a word position over a results
+file of ``api.run``. NLTK's tagger runs when its data is installed, else
+the rule tagger of ``text.lexicons``.
+
+    python -m conzic_torch.eval.pos_eval results/.../iter_N.json \
+        [--word_id 12] [--template '[["DET"], ["NOUN"]]']
 """
 
 from __future__ import annotations
 
+import argparse
+import functools
+import json
 from typing import List, Sequence, Tuple
 
 from conzic_torch.eval.ndiv import word_tokenize
 from conzic_torch.text.lexicons import UNIVERSAL_TAGS, rule_tag
 
 
-def tag_words(words: Sequence[str]) -> List[str]:
+@functools.lru_cache(maxsize=None)
+def _nltk_pos_tag():
+    """NLTK's ``pos_tag`` when NLTK and its tagger data are installed,
+    else None; decided once per process, as ``ndiv.word_tokenize``
+    decides its tokenizer."""
     try:
         from nltk import pos_tag
 
-        return [t for _, t in pos_tag(list(words), tagset="universal")]
+        pos_tag(["a"], tagset="universal")  # reads the tagger data
+        return pos_tag
     except (ImportError, LookupError):
+        return None
+
+
+def tag_words(words: Sequence[str]) -> List[str]:
+    pos_tag = _nltk_pos_tag()
+    if pos_tag is None:
         return [rule_tag(w.lower()) for w in words]
+    return [t for _, t in pos_tag(list(words), tagset="universal")]
 
 
 def text_pos_analysis(text: str) -> List[str]:
@@ -64,3 +82,27 @@ def histogram_position(captions: Sequence[str], word_id: int) -> dict:
         if word_id < len(tags):
             hist[tags[word_id]] = hist.get(tags[word_id], 0) + 1
     return hist
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("results_json", help="an iter_N.json results file")
+    p.add_argument("--word_id", type=int, default=12)
+    p.add_argument("--template", type=str, default=None,
+                   help="JSON list template, e.g. '[[\"DET\"],[\"NOUN\"]]'")
+    args = p.parse_args(argv)
+    with open(args.results_json, encoding="utf-8") as f:
+        res = json.load(f)
+    captions: List[str] = []
+    for v in (res.values() if isinstance(res, dict) else res):
+        captions.extend(v if isinstance(v, list) else [v])
+    if args.template:
+        template = json.loads(args.template)
+        _, scores = batch_texts_pos_analysis(captions, template)
+        print("mean template accuracy:", sum(scores) / max(len(scores), 1))
+    print("tag histogram at word", args.word_id, ":",
+          histogram_position(captions, args.word_id))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,9 @@
-"""JAX parameter tree -> port modules.
+"""Checkpoints -> port modules: ``conzic_tpu`` parameter trees and HF
+state dicts.
+
+``from_hf_state_dict`` (at the end of this file) loads the HF checkpoints
+that ``Captioner.from_pretrained`` reads, as ``conzic_tpu/models/convert.py``
+does for the JAX package.
 
 The inverse direction of ``conzic_tpu/models/convert.py``: ``from_jax_params``
 takes the flax parameter tree of a ``conzic_tpu`` model (nested dicts of
@@ -16,7 +21,10 @@ Layout rules:
 
 from __future__ import annotations
 
-from typing import Mapping
+import json
+import os
+import struct
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +32,7 @@ from torch import nn
 
 from conzic_torch.models.bert import BertForMaskedLM
 from conzic_torch.models.clip import CLIPModel, CLIPTextTower, CLIPVisionTower
+from conzic_torch.models.configs import BertConfig, CLIPConfig, load_hf_config
 from conzic_torch.models.layers import (
     LayerNorm,
     Linear,
@@ -134,3 +143,192 @@ def from_jax_params(module: nn.Module, params: Mapping) -> nn.Module:
     else:
         raise TypeError(f"from_jax_params: no layout for {type(module)}")
     return module
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoints: BertForMaskedLM, RobertaForMaskedLM and CLIPModel
+# ---------------------------------------------------------------------------
+#
+# The port's modules keep torch's own layouts, which are HF's (Linear weight
+# (out, in), patch conv (out, in, kh, kw)), so an HF tensor loads as it is,
+# reshaped to the parameter's shape: only the names differ. Each rule maps
+# a part of a port parameter name to the candidate HF names, the first
+# present one being read. The scale of a LayerNorm is HF's ``weight``.
+
+# BERT / RoBERTa encoder layers, after "encoder.layers.{i}." and
+# "{prefix}encoder.layer.{i}."
+_BERT_LAYER = {
+    "attention.query": "attention.self.query",
+    "attention.key": "attention.self.key",
+    "attention.value": "attention.self.value",
+    "attention.out": "attention.output.dense",
+    "ln1": "attention.output.LayerNorm",
+    "mlp.fc1": "intermediate.dense",
+    "mlp.fc2": "output.dense",
+    "ln2": "output.LayerNorm",
+}
+# BERT's MLM head -> (BertForMaskedLM names, RobertaForMaskedLM names);
+# "mlm" is the head's own vocabulary bias
+_BERT_HEAD = {
+    "mlm.transform": (("cls.predictions.transform.dense",),
+                      ("lm_head.dense",)),
+    "mlm.ln": (("cls.predictions.transform.LayerNorm",),
+               ("lm_head.layer_norm",)),
+    "mlm": (("cls.predictions", "cls.predictions.decoder"),
+            ("lm_head", "lm_head.decoder")),
+}
+_BERT_EMBEDDINGS = {
+    "embeddings.word": "embeddings.word_embeddings.weight",
+    "embeddings.position": "embeddings.position_embeddings.weight",
+    "embeddings.token_type": "embeddings.token_type_embeddings.weight",
+    "embeddings.ln": "embeddings.LayerNorm",
+}
+# CLIP: encoder layers of both towers, after "encoder.layers.{i}."
+_CLIP_LAYER = {
+    "attention.query": "self_attn.q_proj",
+    "attention.key": "self_attn.k_proj",
+    "attention.value": "self_attn.v_proj",
+    "attention.out": "self_attn.out_proj",
+    "ln1": "layer_norm1",
+    "mlp.fc1": "mlp.fc1",
+    "mlp.fc2": "mlp.fc2",
+    "ln2": "layer_norm2",
+}
+_CLIP_OTHER = {
+    "text_model.token_embedding": (
+        "text_model.embeddings.token_embedding.weight",),
+    "text_model.position_embedding": (
+        "text_model.embeddings.position_embedding.weight",),
+    "text_model.final_ln": ("text_model.final_layer_norm",),
+    "vision_model.patch_embedding": (
+        "vision_model.embeddings.patch_embedding.weight",),
+    "vision_model.class_embedding": (
+        "vision_model.embeddings.class_embedding",),
+    "vision_model.position_embedding": (
+        "vision_model.embeddings.position_embedding.weight",),
+    # HF spells the vision pre-norm "pre_layrnorm"
+    "vision_model.pre_ln": ("vision_model.pre_layrnorm",
+                            "vision_model.pre_layernorm"),
+    "vision_model.post_ln": ("vision_model.post_layernorm",),
+    "text_projection": ("text_projection",),
+    "visual_projection": ("visual_projection",),
+    "logit_scale": ("logit_scale",),
+}
+
+
+def _leaf(name: str) -> tuple:
+    """A port parameter name -> (module path, HF suffix): LayerNorm's
+    ``scale`` is HF's ``weight``; an embedding table has no suffix (its
+    HF name in the tables above is whole)."""
+    for tail, hf in ((".scale", ".weight"), (".weight", ".weight"),
+                     (".bias", ".bias")):
+        if name.endswith(tail):
+            return name[:-len(tail)], hf
+    return name, ""
+
+
+def _hf_prefix(sd: Mapping) -> str:
+    """"bert.", "roberta." or "" (a bare encoder)."""
+    for prefix in ("roberta.", "bert."):
+        if any(k.startswith(prefix) for k in sd):
+            return prefix
+    return ""
+
+
+def hf_names(module: nn.Module, name: str, prefix: str = "bert.") -> tuple:
+    """The HF state-dict names of the port parameter ``name`` of
+    ``module`` (a :class:`BertForMaskedLM` whose HF names start with
+    ``prefix``, or a :class:`CLIPModel`), in the order they are looked
+    up."""
+    path, suffix = _leaf(name)
+    if isinstance(module, BertForMaskedLM):
+        if path in _BERT_EMBEDDINGS:
+            return (prefix + _BERT_EMBEDDINGS[path] + suffix,)
+        if path in _BERT_HEAD:
+            bert, roberta = _BERT_HEAD[path]
+            return tuple(n + suffix for n in
+                         (roberta if prefix == "roberta." else bert))
+        _, _, i, rest = path.split(".", 3)  # encoder.layers.{i}.{rest}
+        return (f"{prefix}encoder.layer.{i}.{_BERT_LAYER[rest]}{suffix}",)
+    if isinstance(module, CLIPModel):
+        if path in _CLIP_OTHER:
+            return tuple(n + suffix for n in _CLIP_OTHER[path])
+        tower, _, _, i, rest = path.split(".", 4)
+        return (f"{tower}.encoder.layers.{i}.{_CLIP_LAYER[rest]}{suffix}",)
+    raise TypeError(f"hf_names: no layout for {type(module)}")
+
+
+def from_hf_state_dict(module: nn.Module, sd: Mapping) -> nn.Module:
+    """Load an HF state dict (name -> tensor or numpy array) into
+    ``module`` in place; returns it. Every parameter must be found."""
+    prefix = _hf_prefix(sd) if isinstance(module, BertForMaskedLM) else ""
+    for name, param in module.named_parameters():
+        names = hf_names(module, name, prefix)
+        key = next((n for n in names if n in sd), None)
+        if key is None:
+            raise KeyError(f"the checkpoint has none of {names} for "
+                           f"{name} (not a *ForMaskedLM / CLIPModel "
+                           f"export?)")
+        _set(param, _tensor(sd[key]).reshape(param.shape))
+    return module
+
+
+# safetensors: an 8-byte little-endian header length, a JSON header
+# {name: {dtype, shape, data_offsets}, "__metadata__": ...}, then the raw
+# little-endian bytes of every tensor
+_ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
+              "BF16": np.uint16, "I64": np.int64, "I32": np.int32,
+              "I16": np.int16, "I8": np.int8, "U8": np.uint8,
+              "BOOL": np.bool_}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file as CPU tensors of their stored type, read
+    without the ``safetensors`` package."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = f.read()
+    out = {}
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        start, end = meta["data_offsets"]
+        a = np.frombuffer(data[start:end], _ST_DTYPES[meta["dtype"]])
+        t = torch.from_numpy(a.reshape(meta["shape"]).copy())
+        out[name] = t.view(torch.bfloat16) if meta["dtype"] == "BF16" else t
+    return out
+
+
+def load_state_dict(checkpoint_dir: str) -> Dict[str, torch.Tensor]:
+    """The weights of a local HF checkpoint directory: ``model.safetensors``,
+    the shards of ``model.safetensors.index.json``, or
+    ``pytorch_model.bin``."""
+    st_path = os.path.join(checkpoint_dir, "model.safetensors")
+    if os.path.exists(st_path):
+        return read_safetensors(st_path)
+    index = os.path.join(checkpoint_dir, "model.safetensors.index.json")
+    if os.path.exists(index):
+        with open(index) as f:
+            shards = sorted(set(json.load(f)["weight_map"].values()))
+        sd: Dict[str, torch.Tensor] = {}
+        for name in shards:
+            sd.update(read_safetensors(os.path.join(checkpoint_dir, name)))
+        return sd
+    bin_path = os.path.join(checkpoint_dir, "pytorch_model.bin")
+    if os.path.exists(bin_path):
+        return torch.load(bin_path, map_location="cpu", weights_only=True)
+    raise FileNotFoundError(
+        f"no model.safetensors / pytorch_model.bin under {checkpoint_dir}")
+
+
+def load_bert(checkpoint_dir: str) -> Tuple[BertConfig, Dict]:
+    """(config, state dict) of an HF BERT or RoBERTa masked-LM directory."""
+    config = BertConfig.from_hf_dict(load_hf_config(checkpoint_dir))
+    return config, load_state_dict(checkpoint_dir)
+
+
+def load_clip(checkpoint_dir: str) -> Tuple[CLIPConfig, Dict]:
+    """(config, state dict) of an HF CLIP directory."""
+    config = CLIPConfig.from_hf_dict(load_hf_config(checkpoint_dir))
+    return config, load_state_dict(checkpoint_dir)

@@ -176,6 +176,59 @@ def make_fullsize_wordpiece_vocab(vocab_size: int = 30522) -> dict:
     return {t: j for j, t in enumerate(tokens[:vocab_size])}
 
 
+def make_test_roberta_files(tmpdir: str) -> Tuple[str, str]:
+    """Miniature GPT-2/RoBERTa-style vocab.json + merges.txt: specials,
+    single byte-alphabet chars, and merges building a few common words with
+    'Ġ' space markers."""
+    import json
+    import os
+
+    from conzic_torch.text.bpe import byte_to_unicode
+
+    chars = sorted(set(byte_to_unicode()[b] for b in range(33, 127)))
+    chars.append("Ġ")  # byte 0x20 maps to Ġ
+    merges = []
+    # build "Ġ<word>" and bare "<word>" for a handful of words
+    words = ["the", "a", "of", "image", "girl", "dog", "cat", "sun", "sky",
+             "red", "big", "run", "sit", "play", "ing", "ed"]
+    tokens = list(dict.fromkeys(chars))
+    for w in words:
+        # bare word merges: successive pair merges left-to-right
+        prev = w[0]
+        for ch in w[1:]:
+            merges.append((prev, ch))
+            prev = prev + ch
+        tokens.append(w)
+        merges.append(("Ġ", w))
+        tokens.append("Ġ" + w)
+    # dedupe merges preserving order
+    seen = set()
+    uniq = []
+    for m in merges:
+        if m not in seen:
+            uniq.append(m)
+            seen.add(m)
+    for m in uniq:
+        joined = m[0] + m[1]
+        if joined not in tokens:
+            tokens.append(joined)
+    tokens = list(dict.fromkeys(tokens))
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    for t in tokens:
+        if t not in vocab:
+            vocab[t] = len(vocab)
+    vocab["<mask>"] = len(vocab)
+    vocab_path = os.path.join(tmpdir, "vocab.json")
+    merges_path = os.path.join(tmpdir, "merges.txt")
+    with open(vocab_path, "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(merges_path, "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+        for a, b in uniq:
+            f.write(f"{a} {b}\n")
+    return vocab_path, merges_path
+
+
 def make_test_bpe_files(tmpdir: str) -> Tuple[str, str]:
     """Write a miniature CLIP-style vocab.json + merges.txt covering ASCII
     text. Single characters (+ '</w>' variants) ensure no UNKs; a few merges

@@ -5,8 +5,10 @@ as ``init_mode="proper"`` does, and the ``trained_tiny/`` checkpoint) and get th
 embeddings and the same seeded schedule ``RandomState``. The caption ids of
 every iteration and of the best-by-cosine pick must be identical, and the
 cosines agree within 1e-4. The port runs under each of its ``attn_impl``
-values; the reference keeps its plain attention route, which is what its
-own ``pallas_out`` and ``pallas_block`` take on the CPU.
+values (those cases, and the span and parallel orders, are in
+``tests/test_torch_engine_orders.py``); the reference keeps its plain
+attention route, which is what its own ``pallas_out`` and
+``pallas_block`` take on the CPU.
 """
 
 import os
@@ -25,7 +27,7 @@ from _torch_port import TRAINED_TINY, port_captioner
 from conzic_tpu.config import ConzicConfig as JaxConfig
 from conzic_tpu.engine.sampler import Captioner as JaxCaptioner
 from conzic_tpu.engine.primitives import generate_step as jax_generate_step
-from conzic_torch.config import ATTN_IMPLS, ConzicConfig
+from conzic_torch.config import ConzicConfig
 from conzic_torch.engine.primitives import generate_step
 from conzic_torch.engine.sampler import Captioner
 from conzic_torch.models.layers import TransformerBlock
@@ -143,38 +145,6 @@ def test_trained_tiny_run_matches_reference(order):
                            max_len=6, top_k=16, max_iter=2, order=order,
                            n_samples=2)
     assert len(got.gen_texts_list) == 3  # two iterations, then the best
-
-
-# span: an odd sentence_len leaves a last span of one slot; parallel: the
-# candidates come from the iteration-start rows. kv_chunk_size=0 encodes
-# every candidate row in full, so pallas_block takes the text rows too
-@pytest.mark.parametrize("kv_chunk_size", [16, 0])
-@pytest.mark.parametrize("attn_impl", ATTN_IMPLS)
-@pytest.mark.parametrize("order", ["span", "parallel"])
-def test_span_and_parallel_match_reference(order, attn_impl, kv_chunk_size):
-    _assert_same_run("random", dict(kv_chunk_size=kv_chunk_size),
-                     _embeds("random", 2), attn_impl=attn_impl, max_len=5,
-                     top_k=12, max_iter=2, order=order, n_samples=2)
-
-
-@pytest.mark.parametrize("attn_impl", ["pallas_out", "pallas_block"])
-@pytest.mark.parametrize("order,kv_chunk_size", [
-    ("sequential", 16), ("sequential", 0), ("shuffle", 16),
-])
-def test_single_orders_match_reference_under_attn_impl(order, kv_chunk_size,
-                                                       attn_impl):
-    _assert_same_run("random", dict(kv_chunk_size=kv_chunk_size),
-                     _embeds("random", 2), attn_impl=attn_impl, max_len=5,
-                     top_k=12, max_iter=2, order=order)
-
-
-@pytest.mark.parametrize("order,attn_impl", [
-    ("span", "pallas"), ("span", "pallas_block"), ("parallel", "pallas_out"),
-])
-def test_trained_tiny_span_and_parallel_match_reference(order, attn_impl):
-    _assert_same_run("trained_tiny", {}, _embeds("trained_tiny", 3),
-                     attn_impl=attn_impl, max_len=6, top_k=16, max_iter=2,
-                     order=order)
 
 
 def _step_logits():
