@@ -4,13 +4,17 @@ points.
 Counterpart of ``conzic_tpu/config.py``: one ``ConzicConfig`` with the
 reference CLIs' flags (names and defaults) and the fields that
 ``Captioner`` reads, and ``add_reference_args`` / ``config_from_args``,
-which every entry point shares. The knobs of paths not ported yet parse and
-are held at their defaults by :meth:`ConzicConfig.validate`, which raises
-``NotImplementedError`` naming the knob for any other value.
+which every entry point shares. :meth:`ConzicConfig.validate` refuses the
+combinations of the pruned tiers' knobs that the reference refuses, with
+its messages. The knobs of paths not ported (the int8 tier, the mesh) parse
+and are held at their defaults: any other value raises
+``NotImplementedError`` naming the knob.
 
 XLA's own knobs: ``scan_layers`` is refused like an unported tier (the port
 runs unrolled layers); ``--compiler_options`` is accepted and ignored, as
-the reference ignores it on every backend but the TPU.
+the reference ignores it on every backend but the TPU. So is
+``allow_deep_stage1``: it lifts the reference's guard on the depth of a
+``lax.map``, and the port has no map.
 """
 
 from __future__ import annotations
@@ -21,21 +25,7 @@ from typing import List, Optional
 
 # knob -> the only value the port supports so far
 _UNPORTED = {
-    "prune_k": 0,
-    "prune_final_exact": False,
-    "prune_stage1": "proxy",
-    "prune_stage1_layers": 2,
-    "prune_stage1_precut": 0,
-    "prune_stage1_precut_mode": "proxy",
-    "prune_stage1_precut_layers": 1,
-    "prune_stage1_ctl": "auto",
-    "allow_deep_stage1": False,
-    "clip_window": 0,
     "quant": "none",
-    "topk_chunk": 2048,
-    "topk_mode": "exact",
-    "topk_recall": 0.95,
-    "mask_impl": "gather",
     "scan_layers": False,
     "mesh_data_axis": 1,
 }
@@ -117,22 +107,48 @@ class ConzicConfig:
     # candidate on the host (eval/sentiment_eval.py, eval/pos_eval.py)
     ctl_mode: str = "table"
     verbose: bool = True  # generate_caption logs every iteration
-    # knobs of paths not ported yet (validate() refuses other values)
+    # --- the pruned and hybrid tiers (not parity: quality at a speed) -------
+    # score only prune_k of the k candidates through the full text tower,
+    # picked by a stage-1 scorer; 0 = off (full parity)
     prune_k: int = 0
+    # with prune_k: the last iteration scores all k candidates, a
+    # full-parity sweep over the pruned state
     prune_final_exact: bool = False
+    # stage-1 scorer: "proxy" (cosine of the image with the bag of the
+    # candidate sentence's per-word CLIP embeddings) or "factorized" (the
+    # first prune_stage1_layers text-tower layers and a calibrated
+    # projection; 0 layers = the smallest depth whose held-out cosine clears
+    # STAGE1_CALIB_FLOOR)
     prune_stage1: str = "proxy"
     prune_stage1_layers: int = 2
+    # factorized only: cut k -> prune_stage1_precut first, by the proxy or
+    # by a shallower tower of prune_stage1_precut_layers layers; 0 = off
     prune_stage1_precut: int = 0
     prune_stage1_precut_mode: str = "proxy"
     prune_stage1_precut_layers: int = 1
+    # rank every stage-1 cut of a controlled run by the whole combined
+    # score (control term included) instead of the surrogate cosine:
+    # "auto" and "on" do so whenever control and pruning are both on
     prune_stage1_ctl: str = "auto"
-    allow_deep_stage1: bool = False
+    allow_deep_stage1: bool = False  # accepted; nothing to lift here
+    # encode candidate chunks over their first clip_window columns (rounded
+    # up to 8) when every row of the chunk fits: exact; 0 = off
     clip_window: int = 0
-    quant: str = "none"
+    # the exact two-stage top-k's block width (energies.exact_topk_2stage,
+    # which the engine takes from 128 rows up, where the card measured it
+    # faster than one sort: energies.TOPK_2STAGE_MIN_ROWS)
     topk_chunk: int = 2048
+    # "approx" (pruned tiers only; _spec refuses it without prune_k): the
+    # reference's approx_max_k, which is exact off the TPU, so the engine
+    # runs the exact top-k under either mode. topk_recall, approx's recall
+    # target, is parsed and read by nothing
     topk_mode: str = "exact"
     topk_recall: float = 0.95
+    # stop-mask lookup of the top-k ids: "gather" from the (V,) mask, or
+    # "compare" against the banned-id lists; the same ids either way
     mask_impl: str = "gather"
+    # not ported (validate() refuses other values)
+    quant: str = "none"
     scan_layers: bool = False
     mesh_data_axis: int = 1
 
@@ -161,6 +177,42 @@ class ConzicConfig:
             if getattr(self, knob) not in allowed:
                 raise ValueError(f"unknown {knob} {getattr(self, knob)!r} "
                                  f"(one of {allowed})")
+        self._validate_pruning()
+
+    def _validate_pruning(self) -> None:
+        """The reference's refusals (``conzic_tpu/config.py`` ``validate``),
+        with its messages, as ValueError."""
+        def need(ok: bool, message: str) -> None:
+            if not ok:
+                raise ValueError(message)
+
+        need(self.clip_window >= 0, f"clip_window={self.clip_window} < 0")
+        need(self.prune_stage1_layers >= 0,
+             f"prune_stage1_layers={self.prune_stage1_layers} < 0 (0 = "
+             "auto-select)")
+        need(self.prune_stage1_precut >= 0,
+             f"prune_stage1_precut={self.prune_stage1_precut} < 0")
+        need(self.prune_stage1_precut_layers >= 1,
+             f"prune_stage1_precut_layers={self.prune_stage1_precut_layers}"
+             " < 1")
+        if self.prune_stage1 == "factorized":
+            need(self.prune_k > 0,
+                 "--prune_stage1 factorized requires --prune_k")
+            if self.prune_stage1_precut:
+                need(self.prune_stage1_precut > self.prune_k,
+                     "--prune_stage1_precut must exceed --prune_k "
+                     "(it is the intermediate cascade width)")
+                if (self.prune_stage1_precut_mode == "tower"
+                        and self.prune_stage1_layers):
+                    need(self.prune_stage1_precut_layers
+                         < self.prune_stage1_layers,
+                         "--prune_stage1_precut_layers must be SHALLOWER "
+                         "than --prune_stage1_layers (the pre-cut exists "
+                         "to be cheaper than the stage it feeds)")
+        else:
+            need(not self.prune_stage1_precut,
+                 "--prune_stage1_precut only applies to the factorized "
+                 "stage-1 (the proxy IS the pre-cut scorer)")
 
 
 _CHOICES = {
@@ -168,13 +220,43 @@ _CHOICES = {
     "run_type": ("caption", "controllable"),
     "control_type": ("sentiment", "pos"),
     "sentiment_type": ("positive", "negative"),
+    "prune_stage1": ("proxy", "factorized"),
+    "prune_stage1_precut_mode": ("proxy", "tower"),
+    "prune_stage1_ctl": ("auto", "on", "off"),
+    "topk_mode": ("exact", "approx"),
+    "mask_impl": ("gather", "compare"),
 }
+# the pruned tiers' flags, after the reference's (conzic_tpu/config.py)
+_PRUNE_FLAGS = (
+    ("prune_k", int, "candidates scored through the full text tower, "
+     "picked by the stage-1 scorer (0 = full parity)"),
+    ("prune_stage1", str, "stage-1 scorer for --prune_k: the bag-of-"
+     "embeddings proxy or the truncated tower (factorized)"),
+    ("prune_stage1_layers", int, "text-tower layers of the factorized "
+     "stage-1 (0 = the smallest depth whose calibration clears the floor)"),
+    ("prune_stage1_precut", int, "factorized: first cut k to this many (0 = "
+     "off)"),
+    ("prune_stage1_precut_mode", str, "pre-cut scorer: the proxy or a "
+     "shallower tower"),
+    ("prune_stage1_precut_layers", int, "the tower pre-cut's depth (below "
+     "--prune_stage1_layers)"),
+    ("prune_stage1_ctl", str, "rank stage-1 cuts of controlled runs by the "
+     "whole combined score"),
+    ("clip_window", int, "encode candidates over their first N columns when "
+     "they fit (exact; 0 = off)"),
+    ("topk_chunk", int, "block width of the exact two-stage top-k"),
+    ("topk_mode", str, "approx needs --prune_k; exact off the TPU"),
+    ("topk_recall", float, "approx top-k's recall target"),
+    ("mask_impl", str, "stop-mask lookup of the top-k ids (the same ids "
+     "either way)"),
+)
 
 
 def add_reference_args(p: argparse.ArgumentParser) -> None:
     """The reference CLIs' flags, with ``--device cuda|cpu`` (the card
     unless the CPU is asked for). The flags of unported tiers parse; a
-    value other than the default ends in ``config_from_args``."""
+    value other than the default ends in ``config_from_args``, as does a
+    combination of the pruned tiers' flags that the reference refuses."""
     d = ConzicConfig()
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--batch_size", type=int, default=d.batch_size)
@@ -222,6 +304,14 @@ def add_reference_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--clip_pad_to", type=int, default=d.clip_pad_to)
     p.add_argument("--attn_impl", type=str, default=d.attn_impl,
                    choices=ATTN_IMPLS + _UNPORTED_ATTN_IMPLS)
+    for knob, kind, help_ in _PRUNE_FLAGS:
+        p.add_argument(f"--{knob}", type=kind, default=getattr(d, knob),
+                       choices=_CHOICES.get(knob), help=help_)
+    p.add_argument("--prune_final_exact", action="store_true",
+                   help="with --prune_k: score all k in the last iteration")
+    p.add_argument("--allow_deep_stage1", action="store_true",
+                   help="the reference's override of a TPU runtime guard; "
+                        "accepted, no effect here")
     # the unported tiers: parsed, refused unless at their defaults
     for knob, default in _UNPORTED.items():
         if knob == "scan_layers":  # a config field only, as in the reference

@@ -8,6 +8,12 @@ the best-by-cosine list at ``[-1]``. ``generate_caption`` and
 ``(gen_texts_list, clip_score_sequence)``: ``[-2]`` is the last iteration's
 caption and ``[-1]`` the best one.
 
+The pruned and hybrid tiers build their tables on first use: the per-word
+CLIP embeddings of the proxy (:meth:`Captioner._ensure_word_embeds`), the
+factorized stage-1's calibrated projections
+(:meth:`Captioner._ensure_stage1_calibration`) and the banned-id lists of
+``mask_impl="compare"``.
+
 The entry points run on the CUDA device unless the caller names another
 device; they raise when CUDA is missing rather than fall back to the CPU.
 """
@@ -18,6 +24,7 @@ import dataclasses
 import json
 import logging
 import os
+import sys
 import tempfile
 import time
 from typing import Dict, List, Optional, Sequence, Union
@@ -40,7 +47,7 @@ from conzic_torch.models.checkpoint import (
     is_tiny_checkpoint,
     load_tiny_checkpoint,
 )
-from conzic_torch.models.clip import CLIPModel
+from conzic_torch.models.clip import CLIPModel, TruncatedTextTower
 from conzic_torch.models.configs import BertConfig, CLIPConfig, load_hf_config
 from conzic_torch.models.convert import (
     from_hf_state_dict,
@@ -67,6 +74,13 @@ from conzic_torch.text.wordpiece import WordPieceTokenizer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 CTLS = ("sentiment", "pos")
+# the factorized stage-1's calibration floor, the reference's: the held-out
+# cosine below which a warning goes to stderr, and the least that the
+# automatic depth (prune_stage1_layers=0) accepts
+STAGE1_CALIB_FLOOR = 0.91
+# the pruned tiers' tables: the proxy's word embeddings, the factorized
+# stage-1's projection and the tower pre-cut's
+PRUNE_TABLES = ("word_embeds", "stage1_wcal", "stage1_wcal_pc")
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -129,6 +143,11 @@ class Captioner:
         # the exact modes' host callables, built on first use
         self._host_bridges: Dict[int, object] = {}
         self._host_ctls: Dict[tuple, object] = {}
+        # the factorized stage-1's calibration once fit: its cache key
+        # (layers, clip_len, tower pre-cut layers) and held-out cosines
+        self.stage1_key: Optional[tuple] = None
+        self.stage1_calib_cos: Optional[float] = None
+        self.stage1_pc_calib_cos: Optional[float] = None
         # the prefix-K/V bound assumes every selectable token adds >= 1
         # CLIP piece; a user stop-words file may leave empty ones selectable
         self._mask_allows_empty_piece = bool(
@@ -306,6 +325,203 @@ class Captioner:
         self.tables["template"] = torch.from_numpy(
             template_matrix(self.cfg.pos_type)).to(dev)
 
+    def _ensure_banned_tables(self) -> None:
+        """``mask_impl="compare"``'s banned-id lists (the ids each mask
+        sets to 0), padded to one length with -1, which no id matches;
+        built on first use."""
+        if "banned_mid" in self.tables:
+            return
+        banned = {out: torch.nonzero(self.tables[src] == 0)[:, 0]
+                  for out, src in (("banned_mid", "mask_mid"),
+                                   ("banned_last", "mask_last"))}
+        nb = max(a.numel() for a in banned.values())
+        for key, a in banned.items():
+            self.tables[key] = torch.nn.functional.pad(
+                a, (0, nb - a.numel()), value=-1)
+
+    def _encode_rows(self, encode, ids: np.ndarray, mask: np.ndarray,
+                     chunk: int) -> np.ndarray:
+        """``encode`` over (N, S) host rows in chunks of ``chunk`` rows on
+        the device -> (N, D) float32 on the host."""
+        dev, out = self.device, []
+        with torch.inference_mode():
+            for s in range(0, ids.shape[0], chunk):
+                i_c = torch.from_numpy(ids[s:s + chunk]).long().to(dev)
+                m_c = torch.from_numpy(mask[s:s + chunk]).to(dev)
+                out.append(encode(i_c, m_c).float().cpu().numpy())
+        return np.concatenate(out)
+
+    def _ensure_word_embeds(self) -> None:
+        """The proxy's (V, D) table, built on first use: each vocabulary
+        token as a one-word caption ([BOS] pieces [EOS]) through the full
+        text tower in chunks of 4,096 rows (the last padded with copies of
+        its last row), in the captioner's dtype; specials exactly 0."""
+        if "word_embeds" in self.tables:
+            return
+        br = self.bridge
+        V, M = br.ids.shape
+        seq_len = min(M + 2, 77)
+        ids = np.full((V, seq_len), br.pad_id, np.int32)
+        ids[:, 0] = br.bos_id
+        lens = np.minimum(br.lens, seq_len - 2)
+        for m in range(min(M, seq_len - 2)):
+            sel = lens > m
+            ids[sel, 1 + m] = br.ids[sel, m]
+        ids[np.arange(V), 1 + lens] = br.eos_id
+        mask = (np.arange(seq_len)[None, :] <= 1 + lens[:, None]).astype(
+            np.int32)
+        chunk = 4096
+        pad = (-V) % chunk
+        if pad:
+            ids = np.concatenate([ids, np.repeat(ids[-1:], pad, axis=0)])
+            mask = np.concatenate([mask, np.repeat(mask[-1:], pad, axis=0)])
+        emb = self._encode_rows(self.clip_model.encode_text, ids, mask,
+                                chunk)[:V]
+        emb[np.asarray(br.lens) == 0] = 0.0
+        self.tables["word_embeds"] = torch.from_numpy(emb).to(self.device)
+
+    def _calibration_rows(self, n_sentences: int, seed: int):
+        """The calibration's random captions: 3 to 12 words drawn from the
+        tokens that bridge to at least one CLIP piece, as (N, clip_len)
+        CLIP ids and mask, drawn from ``RandomState(seed)`` as the
+        reference draws them."""
+        br = self.bridge
+        rng = np.random.RandomState(seed)
+        lens = np.asarray(br.lens)
+        valid = np.where(lens > 0)[0]
+        L = self.cfg.clip_len
+        rows = np.full((n_sentences, L), br.pad_id, np.int32)
+        mask = np.zeros((n_sentences, L), np.int32)
+        ids_tab = np.asarray(br.ids)
+        for i in range(n_sentences):
+            row = [br.bos_id]
+            for w in rng.choice(valid, rng.randint(3, 13)):
+                row.extend(ids_tab[w][:lens[w]].tolist())
+                if len(row) >= L - 1:
+                    break
+            row = row[:L - 1] + [br.eos_id]
+            rows[i, :len(row)] = row
+            mask[i, :len(row)] = 1
+        return rows, mask
+
+    def _ensure_stage1_calibration(self, n_sentences: int = 2048,
+                                   seed: int = 0) -> None:
+        """The factorized stage-1's projection ``tables["stage1_wcal"]``
+        (H, D) fp32, fit on first use: a ridge least-squares map (float64,
+        on the host) from the truncated tower's pooled states to the full
+        tower's embeddings of random captions, the last eighth (at least
+        32) held out; its mean held-out cosine is ``stage1_calib_cos``.
+        ``prune_stage1_layers=0`` takes the smallest depth from 2 whose
+        held-out cosine reaches :data:`STAGE1_CALIB_FLOOR` (else the best)
+        and writes it into the config; a cosine below the floor warns on
+        stderr. The tower pre-cut has its own fit,
+        ``tables["stage1_wcal_pc"]``. Refit when the depths or clip_len
+        change."""
+        requested = self.cfg.prune_stage1_layers
+        full_layers = self.clip_model.config.text.num_layers
+        if requested and not 1 <= requested < full_layers:
+            raise ValueError(
+                f"prune_stage1_layers={requested} must be in [1, "
+                f"{full_layers - 1}] (full tower has {full_layers} layers) "
+                "or 0 for auto-select")
+        pc_layers = 0
+        if (self.cfg.prune_stage1_precut
+                and self.cfg.prune_stage1_precut_mode == "tower"):
+            pc_layers = self.cfg.prune_stage1_precut_layers
+            if not 1 <= pc_layers < full_layers:
+                raise ValueError(
+                    f"prune_stage1_precut_layers={pc_layers} must be in "
+                    f"[1, {full_layers - 1}]")
+        meta = (requested, self.cfg.clip_len, pc_layers)
+        if "stage1_wcal" in self.tables and self.stage1_key == meta:
+            return
+        rows, mask = self._calibration_rows(n_sentences, seed)
+        chunk = 1024
+        y = self._encode_rows(self.clip_model.encode_text, rows, mask,
+                              chunk).astype(np.float64)
+        n_hold = max(32, len(y) // 8)
+
+        def fit(nl):
+            """Ridge fit at ``nl`` layers -> (w, mean held-out cosine)."""
+            tower = TruncatedTextTower(self.clip_model.text_model, nl)
+            h = self._encode_rows(tower, rows, mask, chunk).astype(
+                np.float64)
+            h_fit, y_fit = h[:-n_hold], y[:-n_hold]
+            w = np.linalg.solve(h_fit.T @ h_fit + 1e-3 * np.eye(h.shape[1]),
+                                h_fit.T @ y_fit)
+            pred, tgt = h[-n_hold:] @ w, y[-n_hold:]
+            cos = np.sum(pred * tgt, axis=1) / (
+                np.linalg.norm(pred, axis=1) * np.linalg.norm(tgt, axis=1)
+                + 1e-9)
+            return w, float(np.mean(cos))
+
+        if requested:
+            n_layers = requested
+            w, calib = fit(n_layers)
+        else:
+            best = n_layers = None
+            for nl in range(min(2, full_layers - 1), full_layers):
+                w_nl, cos_nl = fit(nl)
+                if best is None or cos_nl > best[2]:
+                    best = (nl, w_nl, cos_nl)
+                if cos_nl >= STAGE1_CALIB_FLOOR:
+                    n_layers, w, calib = nl, w_nl, cos_nl
+                    break
+            if n_layers is None:
+                n_layers, w, calib = best
+            self.cfg.prune_stage1_layers = n_layers  # the resolved depth
+            if self.cfg.verbose:
+                print(f"factorized stage-1 auto-selected "
+                      f"{n_layers}/{full_layers} layers "
+                      f"(held-out cosine {calib:.4f})")
+        self.stage1_calib_cos = calib
+        if calib < STAGE1_CALIB_FLOOR:
+            print(f"WARNING: factorized stage-1 calibration held-out cosine "
+                  f"{calib:.4f} < {STAGE1_CALIB_FLOOR} for "
+                  f"prune_stage1_layers={n_layers} on this checkpoint — the "
+                  f"under-gate quality cells were measured at 0.917-0.975 "
+                  f"(the over-gate ones at 0.854); raise the layer count or "
+                  f"treat quality as unbounded.", file=sys.stderr)
+        elif self.cfg.verbose:
+            print(f"factorized stage-1 calibration held-out cosine "
+                  f"{calib:.4f} (layers={n_layers})")
+        self.tables["stage1_wcal"] = torch.from_numpy(
+            w.astype(np.float32)).to(self.device)
+        if pc_layers:
+            if pc_layers >= n_layers:
+                raise ValueError(
+                    f"prune_stage1_precut_layers={pc_layers} must be "
+                    f"shallower than the (resolved) prune_stage1_layers="
+                    f"{n_layers}")
+            w_pc, self.stage1_pc_calib_cos = fit(pc_layers)
+            self.tables["stage1_wcal_pc"] = torch.from_numpy(
+                w_pc.astype(np.float32)).to(self.device)
+            if self.cfg.verbose:
+                print(f"factorized tower pre-cut calibration held-out "
+                      f"cosine {self.stage1_pc_calib_cos:.4f} "
+                      f"(layers={pc_layers})")
+        self.stage1_key = (self.cfg.prune_stage1_layers, self.cfg.clip_len,
+                           pc_layers)
+
+    def adopt_prune_tables(self, tables, stage1_key: Optional[tuple] = None,
+                           calib_cos: Optional[float] = None,
+                           pc_calib_cos: Optional[float] = None) -> None:
+        """Take pruned-tier tables built elsewhere (on another device, or by
+        the reference): those of ``tables`` named in :data:`PRUNE_TABLES`,
+        as fp32 on this captioner's device, with the calibration's cache
+        key and held-out cosines, so that nothing is refit while the config
+        requests the key's depths. Two builds agree only to the last bits,
+        so this lets two runs share one set."""
+        for name in PRUNE_TABLES:
+            if name in tables:
+                t = tables[name]
+                if not isinstance(t, torch.Tensor):
+                    t = torch.from_numpy(np.asarray(t, np.float32))
+                self.tables[name] = t.to(self.device, torch.float32)
+        self.stage1_key = stage1_key
+        self.stage1_calib_cos = calib_cos
+        self.stage1_pc_calib_cos = pc_calib_cos
+
     def _get_host_bridge(self, clip_len: int):
         """``bridge_mode="exact"``'s host callable, one per context
         length."""
@@ -353,11 +569,30 @@ class Captioner:
             pad = (L + 7) // 8 * 8 if L > 64 and L % 8 else 0
         return pad if pad > L else 0
 
+    def _clip_window(self) -> int:
+        """``clip_window`` rounded up to a multiple of 8; 0 when that is not
+        narrower than the rows' static width. The reference refuses a
+        window on a mesh; the port runs on one card."""
+        w = self.cfg.clip_window
+        if not w:
+            return 0
+        w = (w + 7) // 8 * 8
+        return w if w < (self._clip_pad_to() or self.cfg.clip_len) else 0
+
     def _spec(self, seed_len: int, max_len: int, top_k: int,
               prefix_chunks, order_kind: str = "single",
-              ctl: Optional[str] = None,
-              negative: bool = False) -> EngineSpec:
+              ctl: Optional[str] = None, negative: bool = False,
+              prune_k: Optional[int] = None,
+              final_exact: bool = False) -> EngineSpec:
         exact = self.cfg.bridge_mode == "exact"
+        if self.cfg.topk_mode == "approx" and not prune_k:
+            raise ValueError(
+                "topk_mode='approx' is a pruned-tier-only lever: it relaxes "
+                "the candidate set (non-parity) and is refused without "
+                "prune_k so the full-parity tier stays exact")
+        if self.cfg.mask_impl not in ("gather", "compare"):
+            raise ValueError(f"unknown mask_impl {self.cfg.mask_impl!r} "
+                             "(expected gather | compare)")
         row_chunk = self.cfg.clip_row_chunk
         budget = self.cfg.clip_token_budget
         if row_chunk and budget and self.cfg.clip_len > 48:
@@ -381,14 +616,42 @@ class Captioner:
             negative=negative,
             ctl_mode=self.cfg.ctl_mode if ctl is not None else "table",
             exact_bridge=exact,
+            prune_k=prune_k,
+            final_exact=bool(final_exact and prune_k is not None),
+            prune_stage1=self.cfg.prune_stage1,
+            stage1_layers=self.cfg.prune_stage1_layers,
+            stage1_precut=self.cfg.prune_stage1_precut,
+            stage1_precut_mode=self.cfg.prune_stage1_precut_mode,
+            stage1_precut_layers=self.cfg.prune_stage1_precut_layers,
+            # "auto" and "on" alike: only controlled pruned runs rank so
+            stage1_ctl=(self.cfg.prune_stage1_ctl != "off"
+                        and ctl is not None and prune_k is not None),
+            clip_window=self._clip_window(),
+            topk_chunk=self.cfg.topk_chunk,
+            mask_impl=self.cfg.mask_impl,
         )
+
+    def _ensure_prune_tables(self, prune_k: Optional[int]) -> None:
+        """The tables this run's tier reads, built on first use."""
+        if prune_k is not None:
+            if self.cfg.prune_stage1 == "factorized":
+                self._ensure_stage1_calibration()
+                if (self.cfg.prune_stage1_precut
+                        and self.cfg.prune_stage1_precut_mode == "proxy"):
+                    self._ensure_word_embeds()  # the pre-cut's proxy
+            else:
+                self._ensure_word_embeds()
+        if self.cfg.mask_impl == "compare":
+            self._ensure_banned_tables()
 
     def run(self, image_embeds, *, prompt: str, max_len: int, top_k: int,
             temperature: float, max_iter: int, alpha: float, beta: float,
             gamma: float = 0.0, order: str = "sequential",
             ctl: Optional[str] = None, negative: bool = False,
             rng: Optional[np.random.RandomState] = None,
-            n_samples: int = 1, pos_template=None) -> GenerationResult:
+            n_samples: int = 1, prune_k: Optional[int] = None,
+            prune_final_exact: bool = False,
+            pos_template=None) -> GenerationResult:
         """One full generation; snapshots are decoded on the host after it.
 
         ``ctl`` ("sentiment" or "pos") adds ``gamma`` times the control
@@ -397,18 +660,30 @@ class Captioner:
         call only. ``n_samples > 1`` runs independent samples as extra
         batch rows (sample-major), each with its own schedule drawn from
         ``rng`` in turn, so the result equals ``n_samples`` separate calls;
-        unpack it with :meth:`split_samples`."""
+        unpack it with :meth:`split_samples`.
+
+        ``prune_k`` (default ``cfg.prune_k``; off when 0 or not below
+        ``top_k``) scores only that many stage-1 survivors through the full
+        tower; ``prune_final_exact`` (or ``cfg.prune_final_exact``) scores
+        all k in the last iteration."""
         if ctl is not None and ctl not in CTLS:
             raise ValueError(f"unknown ctl {ctl!r} (None or one of {CTLS})")
         rng = rng or np.random.RandomState(self.cfg.seed)
         top_k = min(top_k, self.wp.vocab_size)
         scheds = [build_schedule(order, max_len, max_iter, rng)
                   for _ in range(n_samples)]
+        if prune_k is None:  # the config's tier; an argument overrides it
+            prune_k = self.cfg.prune_k or None
+        prune_final_exact = prune_final_exact or self.cfg.prune_final_exact
+        if prune_k is not None and prune_k >= top_k:
+            prune_k = None
+        self._ensure_prune_tables(prune_k)
         init_row = self.init_ids(prompt, max_len, 1)
         seed_len = init_row.shape[1] - max_len - 1
         kind = scheds[0].kind
         spec = self._spec(seed_len, max_len, top_k, self._prefix_chunks(
-            order, init_row, seed_len, max_len), kind, ctl, negative)
+            order, init_row, seed_len, max_len), kind, ctl, negative,
+            prune_k=prune_k, final_exact=prune_final_exact)
         dev = self.device
         tables, host = self.tables, HostCalls()
         if spec.exact_bridge:
@@ -418,7 +693,9 @@ class Captioner:
                         else self.cfg.pos_type) if ctl == "pos" else None
             host = host._replace(ctl=self._get_host_ctl(ctl, negative,
                                                         template))
-        elif ctl is not None:
+        # the table terms; under ctl_mode="exact" the control-aware
+        # stage-1 rank still reads them
+        if ctl is not None and (spec.ctl_mode != "exact" or spec.stage1_ctl):
             self._ensure_ctl_tables()
             if pos_template is not None:
                 # this call's template; the shared tables stay as they are

@@ -3,11 +3,13 @@
 Counterpart of ``conzic_tpu/models/clip.py``. Pixel input stays NHWC at the
 public functions; the text tower pools at the first EOS and supports the
 exact prefix-K/V split of the engine (``text_prefix_kvs`` once, then
-``encode_text_suffix`` for every candidate chunk).
+``encode_text_suffix`` for every candidate chunk). :class:`TruncatedTextTower`
+runs the first layers of the text tower: the factorized stage-1 scorer.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
@@ -55,12 +57,13 @@ class CLIPTextTower(nn.Module):
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None, *,
                 pos_offset: int = 0, prefix_kvs: Optional[List] = None,
-                return_kvs: bool = False):
+                return_kvs: bool = False, depth: Optional[int] = None):
         """Full-row encode, or one side of the exact prefix-K/V split:
         ``return_kvs`` also returns every layer's K/V; ``prefix_kvs`` runs
         the rows as a suffix continuation at positions ``pos_offset``..,
         every query attending the cached prefix keys plus the causal
-        suffix."""
+        suffix. ``depth``: the first ``depth`` layers only, then the final
+        LayerNorm and the pool, as a tower of that many layers would."""
         cfg, dt = self.config, self.dtype
         S = input_ids.shape[1]
         x = F.embedding(input_ids, self.token_embedding.to(dt))
@@ -76,13 +79,40 @@ class CLIPTextTower(nn.Module):
         is_eos = (input_ids == cfg.eos_token_id).to(torch.int32)
         eos_pos = torch.argmax(is_eos, dim=1)  # first occurrence
         if return_kvs:
-            x, kvs = self.encoder(x, mask, return_kvs=True)
+            x, kvs = self.encoder(x, mask, return_kvs=True, depth=depth)
             x = torch.gather(
                 x, 1, eos_pos[:, None, None].expand(-1, 1, x.shape[-1]))
             return self.final_ln(x)[:, 0], kvs
         x = self.encoder(x, mask, prefix_kvs=prefix_kvs,
-                         pool_idx=eos_pos[:, None])
+                         pool_idx=eos_pos[:, None], depth=depth)
         return self.final_ln(x)[:, 0]
+
+
+class TruncatedTextTower:
+    """The first ``num_layers`` layers of a text tower, then its final
+    LayerNorm and the pool at the first EOS: the factorized stage-1 scorer.
+    Counterpart of a ``CLIPTextTower`` with ``num_layers`` applied to
+    ``truncated_text_params``: a view of the same modules, no weight copied.
+    Called like the tower; ``prefix_kvs`` may be the full tower's, whose
+    first ``num_layers`` entries are this view's."""
+
+    def __init__(self, tower: CLIPTextTower, num_layers: int):
+        full = tower.config.num_layers
+        if not 1 <= num_layers <= full:
+            raise ValueError(f"a truncated tower of {num_layers} layers "
+                             f"(the tower has {full})")
+        self.tower, self.num_layers = tower, num_layers
+        self.config = dataclasses.replace(tower.config, num_layers=num_layers)
+
+    def __call__(self, input_ids: torch.Tensor,
+                 attention_mask: Optional[torch.Tensor] = None, *,
+                 pos_offset: int = 0, prefix_kvs: Optional[List] = None,
+                 return_kvs: bool = False):
+        if prefix_kvs is not None:
+            prefix_kvs = list(prefix_kvs[:self.num_layers])
+        return self.tower(input_ids, attention_mask, pos_offset=pos_offset,
+                          prefix_kvs=prefix_kvs, return_kvs=return_kvs,
+                          depth=self.num_layers)
 
 
 class CLIPVisionTower(nn.Module):

@@ -248,12 +248,16 @@ class TransformerStack(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: AttnMask,
                 prefix_kvs: Optional[List] = None, return_kvs: bool = False,
-                pool_idx: Optional[torch.Tensor] = None):
+                pool_idx: Optional[torch.Tensor] = None,
+                depth: Optional[int] = None):
         """``pool_idx`` (N, Q): the output is only read at those rows, so
-        the final layer computes just them; the output becomes (N, Q, E)."""
+        the final layer computes just them; the output becomes (N, Q, E).
+        ``depth``: run the first ``depth`` blocks only, as a stack of that
+        many layers would."""
         kvs = []
-        last = len(self.layers) - 1
-        for i, block in enumerate(self.layers):
+        layers = self.layers if depth is None else self.layers[:depth]
+        last = len(layers) - 1
+        for i, block in enumerate(layers):
             pkv = prefix_kvs[i] if prefix_kvs is not None else None
             if return_kvs:
                 x, kv = block(x, mask, prefix_kv=pkv, return_kv=True)

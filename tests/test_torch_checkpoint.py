@@ -24,6 +24,7 @@ import torch
 import jax.numpy as jnp
 from flax import serialization
 
+from _torch_port import one_torch_thread  # noqa: F401  (a fixture)
 from _torch_port import TRAINED_TINY, port_captioner
 from test_torch_control_engine import TEMPLATE, assert_same_result
 from conzic_tpu.config import ConzicConfig as JaxConfig

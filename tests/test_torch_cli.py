@@ -25,6 +25,7 @@ from PIL import Image
 
 import jax.numpy as jnp
 
+from _torch_port import one_torch_thread  # noqa: F401  (a fixture)
 from _torch_port import TRAINED_TINY
 from conzic_tpu import compat as jax_compat
 from conzic_tpu.api import demo as jax_demo
@@ -155,14 +156,11 @@ def test_run_drops_the_partial_batch_and_skips_unreadable_files(
         assert sorted(json.load(f)) == ["img_0", "img_1"]
 
 
+# the pruned tiers' flags run: the combinations the reference refuses are
+# in tests/test_torch_pruned.py
 @pytest.mark.parametrize("argv,message", [
-    (["--prune_k", "4"], "prune_k"),
     (["--quant", "int8"], "quant"),
-    (["--clip_window", "16"], "clip_window"),
-    (["--topk_mode", "approx"], "topk_mode"),
-    (["--mask_impl", "compare"], "mask_impl"),
     (["--mesh_data_axis", "2"], "mesh_data_axis"),
-    (["--prune_final_exact"], "prune_final_exact"),
     (["--attn_impl", "xla"], "attn_impl"),
     (["--multihost"], "multi-host"),
     (["--coordinator_address", "localhost:1234"], "multi-host"),

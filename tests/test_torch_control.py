@@ -23,6 +23,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_port import one_torch_thread  # noqa: F401  (a fixture)
 from _torch_port import TRAINED_TINY
 from conzic_tpu import config as jax_config
 from conzic_tpu import energies as jen

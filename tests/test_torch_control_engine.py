@@ -21,6 +21,7 @@ import torch
 
 import jax.numpy as jnp
 
+from _torch_port import one_torch_thread  # noqa: F401  (a fixture)
 from test_torch_engine import _embeds, _pair
 
 from conzic_tpu.engine import sampler as jax_sampler

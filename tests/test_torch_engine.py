@@ -23,6 +23,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_port import one_torch_thread  # noqa: F401  (a fixture)
 from _torch_port import TRAINED_TINY, port_captioner
 from conzic_tpu.config import ConzicConfig as JaxConfig
 from conzic_tpu.engine.sampler import Captioner as JaxCaptioner
@@ -204,10 +205,10 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
         Captioner.from_random()
 
 
+# the pruned tiers' knobs are ported: their refusals are in
+# tests/test_torch_pruned.py
 @pytest.mark.parametrize("knob,value", [
-    ("prune_k", 4), ("clip_window", 16),
-    ("quant", "int8"), ("topk_mode", "approx"), ("mask_impl", "compare"),
-    ("scan_layers", True), ("mesh_data_axis", 2),
+    ("quant", "int8"), ("scan_layers", True), ("mesh_data_axis", 2),
 ])
 def test_unported_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match=knob):

@@ -11,6 +11,7 @@ that the two halves run on two workers.
 
 import pytest
 
+from _torch_port import one_torch_thread  # noqa: F401  (a fixture)
 from test_torch_engine import _assert_same_run, _embeds
 
 from conzic_torch.config import ATTN_IMPLS

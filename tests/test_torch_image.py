@@ -24,6 +24,7 @@ import torch
 import transformers
 from PIL import Image
 
+from _torch_port import one_torch_thread  # noqa: F401  (a fixture)
 from conzic_tpu.data import synthetic as jax_synthetic
 from conzic_tpu.runtime import image as jax_image
 from conzic_torch.data import synthetic

@@ -14,6 +14,7 @@ import torch
 
 import jax.numpy as jnp
 
+from _torch_port import one_torch_thread  # noqa: F401  (a fixture)
 from conzic_tpu.ops.fused_attention import fused_masked_attention
 from conzic_tpu.ops.fused_ln import fused_layer_norm
 from conzic_torch.kernels.layer_norm import layer_norm, layer_norm_plain

@@ -15,6 +15,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_port import one_torch_thread  # noqa: F401  (a fixture)
 from _torch_port import TRAINED_TINY, np_tree, port_bert_config, port_clip_config
 from conzic_tpu.models import configs as jax_configs
 from conzic_tpu.models.bert import BertForMaskedLM as JaxBert

@@ -17,6 +17,7 @@ import torch
 
 import jax.numpy as jnp
 
+from _torch_port import one_torch_thread  # noqa: F401  (a fixture)
 from conzic_tpu.ops.fused_attention import fused_masked_attention
 from conzic_torch.kernels.masked_attention import (
     masked_attention,

@@ -26,6 +26,7 @@ import transformers
 import jax
 import jax.numpy as jnp
 
+from _torch_port import one_torch_thread  # noqa: F401  (a fixture)
 from _torch_port import TRAINED_TINY
 from conzic_tpu.config import ConzicConfig as JaxConfig
 from conzic_tpu.engine.sampler import Captioner as JaxCaptioner

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from test_tokenizer_fuzz import fuzz_strings
 
+from _torch_port import one_torch_thread  # noqa: F401  (a fixture)
 from conzic_tpu import energies as jax_energies
 from conzic_tpu.text import bridge as jax_bridge
 from conzic_tpu.text import vocab as jax_vocab
