@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive ``conzic_torch`` on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--iters 15] [--profile [ATTN_IMPL ...]]
+    python3 chip_smoke.py [--iters 15] [--profile [ROUTE ...]]
     python3 chip_smoke.py --trees DIR [DIR ...] [--reps 3] [--kernels]
 
 Phases, each printing its own lines:
@@ -26,7 +26,13 @@ Phases, each printing its own lines:
    must equal the CPU's (``exp`` at 0 .. 77 printed beside them); then the
    pruned and hybrid tiers on a tiny captioner with a 4-layer text tower
    (``PRUNED_CASES``), the card on the CPU's pruned-tier tables: identical
-   ids;
+   ids; then the int8 tiers and the XLA attention routes (``ROUTE_CASES``:
+   identical ids, no attention kernel launched under the XLA routes), a
+   data mesh of two replicas on the one card (``[cuda:0, cuda:0]``, a
+   ragged batch; then two threads launching ``masked_attention`` at two
+   sizes, every launch succeeding), two processes sharing the card over ``gloo`` (each
+   ``chip_smoke.py --worker``), all with the CPU's ids, and ``make_mesh``
+   refusing more cards than the machine has;
 4. main path: full-width ``bert-base-uncased`` + CLIP ViT-B/32 towers with
    random seeded bf16 weights caption B=32 seeded images with the settings
    of bench.py (k=200, sentence_len 10, clip_len 24, sequential order,
@@ -49,17 +55,38 @@ Phases, each printing its own lines:
    control on seeded pixels in fp32, card against CPU;
 6. command line: ``api.run.main`` at full width over 32 seeded scenes of
    ``data/synthetic.py`` written as PNG (the main path's settings; the
-   results tree complete, the launch counts the engine's), then
-   ``api.demo.main`` on ``trained_tiny/`` over examples/girl.jpg on the
+   results tree complete, the launch counts the engine's), the same
+   command in two processes sharing the card (``python -m
+   conzic_torch.api.run --multihost``, gloo between them: the tree
+   written once, by process 0, with the one-process command's captions;
+   caps/s), then ``api.demo.main`` on ``trained_tiny/`` over examples/girl.jpg on the
    card and on the CPU (equal caption lines); then, for information, bf16
    against fp32 caption ids on trained_tiny/ and trained_mid/ over their
    own rendered scenes, sentiment control's effect on trained_mid/, and
-   trained_mid/ at the flagship's settings, bf16 against fp32.
+   trained_mid/ at the flagship's settings, bf16 against fp32;
+7. new paths at full width: the main path under ``--quant int8``,
+   ``int8_all`` and ``--attn_impl xla`` (``NEW_MAIN_PATHS``: caps/s, s a
+   step, launch counts against the engine's structure, the share of best
+   ids equal to the bf16 pallas run's), the int8 product at the text MLP's
+   shape against ``F.linear`` (its int32 result equal to the CPU's);
+8. the fallback web server answering two POSTs of a rendered scene at the
+   UI's defaults (latency), ``build_index`` over 2,048 synthetic captions
+   (captions/s) and one search, and the main path on two replicas of one
+   process on the card, one thread each (caps/s; the share of ids equal
+   to one process's, information).
+
+``--scale`` (a machine of two or more cards) runs only the scale-out
+phase over every card: tiny fp32 ids equal to the CPU's on a data mesh
+of every card and in one process a card; then the main path at full
+width on one card and on the mesh (caps/s, launch counts, ids equal to
+one card's), and phase 6's command in one process and in ``api.run
+--multihost``, one process a card (the same captions; caps/s).
 
 The last two lines are a JSON object with one entry per kernel (its
 ``launches`` are those of the main-path run under the ``attn_impl`` that the
 kernel carries; ``launches_by_attn_impl`` has every run's,
-``launches_pruned`` the pruned reads') and
+``launches_pruned`` the pruned reads', ``launches_new_paths`` phase 7's)
+and
 ``{"ok": true, "device": {...}}``. Without CUDA, or when a phase fails, the
 script exits non-zero without them. It imports nothing of JAX.
 
@@ -77,14 +104,19 @@ to run.
 from __future__ import annotations
 
 import argparse
+import base64
 import copy
 import dataclasses
+import http.client
+import io
 import json
 import os
 import shutil
+import socket
 import struct
 import subprocess
 import sys
+import threading
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -94,9 +126,11 @@ import torch.nn.functional as F
 from PIL import Image
 
 from conzic_torch import energies
+from conzic_torch.api import app as app_mod
 from conzic_torch.api import demo as demo_cli
+from conzic_torch.api import fallback_ui, retrieval
 from conzic_torch.api import run as run_cli
-from conzic_torch.config import ATTN_IMPLS, ConzicConfig
+from conzic_torch.config import KERNEL_IMPLS, ConzicConfig
 from conzic_torch.data import synthetic
 from conzic_torch.engine.gibbs import row_chunk_width
 from conzic_torch.engine.sampler import PRUNE_TABLES, Captioner
@@ -122,7 +156,11 @@ from conzic_torch.kernels.masked_attention import (
 from conzic_torch.kernels.timing import time_ms
 from conzic_torch.models.configs import BertConfig, CLIPConfig
 from conzic_torch.models.convert import hf_names
-from conzic_torch.ops.attention import attention_keep_mask
+from conzic_torch.models.layers import Linear
+from conzic_torch.ops import quant
+from conzic_torch.ops.attention import XLA_IMPLS, attention_keep_mask
+from conzic_torch.parallel import distributed as dist_lib
+from conzic_torch.parallel.mesh import make_mesh
 from conzic_torch.runtime.image import preprocess_pil, preprocess_torch
 from conzic_torch.text.lexicons import UNIVERSAL_TAGS, _nltk_available
 from conzic_torch.text.vocab import (
@@ -809,7 +847,7 @@ def phase_agreement() -> None:
     under every attn_impl: the four orders with prompt-prefix K/V, and the
     sequential order once more with every candidate row in full
     (kv_chunk_size=0), where the block kernel takes the causal text rows."""
-    for impl in ATTN_IMPLS:
+    for impl in KERNEL_IMPLS:
         cfg = ConzicConfig(dtype="float32", attn_impl=impl)
         cpu, gpu, emb_cpu, emb_err = tiny_pair(cfg)
         runs = [(order, 16) for order in ("sequential", "shuffle", "span",
@@ -991,9 +1029,10 @@ def phase_energy_terms() -> None:
         raise AssertionError(f"control terms differ on the card: {bad}")
 
 
-def full_captioner(dtype: str, attn_impl: str = "pallas") -> Captioner:
+def full_captioner(dtype: str, attn_impl: str = "pallas",
+                   quant: str = "none") -> Captioner:
     cfg = ConzicConfig(dtype=dtype, param_dtype=dtype, attn_impl=attn_impl,
-                       clip_len=MAIN["clip_len"],
+                       quant=quant, clip_len=MAIN["clip_len"],
                        clip_row_chunk=MAIN["row_chunk"],
                        kv_chunk_size=MAIN["kv_chunk"])
     return Captioner.from_random(
@@ -1087,6 +1126,10 @@ def expected_launches(cap: Captioner, n_chunks: int, full_rows=False,
         counts["masked_attention"] -= n
         counts[to] += n
 
+    if impl in XLA_IMPLS:  # the reference's einsum attention: no kernel
+        once["masked_attention"] = step["masked_attention"] = 0
+        return once, step
+
     suffix = sum((d - 1) * c for d, c in passes)  # all but the pooled last
     if impl == "pallas_out" and not full_rows:  # the suffix passes
         move(step, suffix, "attention_with_out")
@@ -1107,9 +1150,13 @@ def read_launches() -> Dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-def phase_main(iters: int, cap: Captioner, shape: dict, pixels) -> dict:
+def phase_main(iters: int, cap: Captioner, shape: dict, pixels,
+               label: Optional[str] = None) -> dict:
+    """The main path once (after a one-iteration warm-up), its launch
+    counts held against the engine's structure; ``label`` names the run in
+    the lines (the attn_impl by default)."""
     B, L = MAIN["batch"], MAIN["sentence_len"]
-    impl = cap.cfg.attn_impl
+    impl = label or cap.cfg.attn_impl
     args = run_args(max_len=L, top_k=MAIN["top_k"], order="sequential")
     # warm-up: cuBLAS handles, the allocator's pools
     cap.run(cap.encode_images(pixels), max_iter=1,
@@ -1134,8 +1181,10 @@ def phase_main(iters: int, cap: Captioner, shape: dict, pixels) -> dict:
     want = {n: once[n] + steps * per_step[n] for n in once}
     say(f"launches [{impl}]: {launches}; the engine's structure gives "
         f"{want}: {once} once per generation and {per_step} per Gibbs step")
-    if any(launches[n] <= 0 for n, route in ROUTE_OF.items()
-           if route in ("pallas", impl)):
+    route = cap.cfg.attn_impl
+    must = (["layer_norm"] if route in XLA_IMPLS else
+            [n for n, r in ROUTE_OF.items() if r in ("pallas", route)])
+    if any(launches[n] <= 0 for n in must):
         raise AssertionError(f"a kernel of the {impl} path never launched: "
                              f"{launches}")
     if launches != want:
@@ -1475,7 +1524,9 @@ def phase_cli_run(iters: int, want: Dict[str, int]) -> dict:
     ``data/synthetic.py`` at 224 px and written as PNG: decode, preprocess
     and generation with the main path's settings (bf16 weights, the same
     seeded towers). The results tree must be complete and the launch
-    counts must be ``want``, the engine's structure for one generation."""
+    counts must be ``want``, the engine's structure for one generation.
+    The images stay in the returned ``work`` for
+    :func:`phase_cli_multihost`, which removes them."""
     B = MAIN["batch"]
     work = scratch_dir("cli_run")
     img_dir = os.path.join(work, "images")
@@ -1515,9 +1566,18 @@ def phase_cli_run(iters: int, want: Dict[str, int]) -> dict:
         f"{want}")
     if launches != want:
         raise AssertionError(f"cli launch counts {launches} != {want}")
-    shutil.rmtree(work)
     return dict(launches=launches, wall_s=wall, generation_s=generation_s,
-                peak_gib=peak_gib)
+                peak_gib=peak_gib, work=work, argv=argv,
+                captions=read_tree(tree))
+
+
+def read_tree(tree: str) -> Dict[str, dict]:
+    """Every file of a results tree's sample directory, by name."""
+    out = {}
+    for name in sorted(os.listdir(tree)):
+        with open(os.path.join(tree, name)) as f:
+            out[name] = json.load(f)
+    return out
 
 
 def phase_cli_demo() -> Dict[str, int]:
@@ -1771,12 +1831,551 @@ def phase_trained_pruned() -> None:
 
 
 # kernel-name fragments -> the part of a Gibbs step they belong to
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the int8 tier, the XLA attention routes, the web app,
+# retrieval and scale-out
+# ---------------------------------------------------------------------------
+
+# (label, config fields, run arguments) of the tiny card-against-CPU runs
+ROUTE_CASES = (
+    ("int8, pallas", dict(quant="int8"), dict(order="sequential")),
+    ("int8_all, pallas", dict(quant="int8_all"), dict(order="shuffle")),
+    ("int8, pallas_out", dict(quant="int8", attn_impl="pallas_out"),
+     dict(order="sequential")),
+    ("int8_all, pallas_block", dict(quant="int8_all",
+                                    attn_impl="pallas_block"),
+     dict(order="sequential")),
+    ("xla", dict(attn_impl="xla"), dict(order="sequential")),
+    ("xla, full rows", dict(attn_impl="xla", kv_chunk_size=0),
+     dict(order="sequential")),
+    ("xla_bhsd", dict(attn_impl="xla_bhsd"), dict(order="shuffle")),
+    ("twoblock", dict(attn_impl="twoblock"), dict(order="sequential")),
+    ("twoblock, span", dict(attn_impl="twoblock"), dict(order="span")),
+    ("twoblock, int8", dict(attn_impl="twoblock", quant="int8"),
+     dict(order="sequential")),
+)
+# the full-width reads of the new paths: (label, attn_impl, quant)
+NEW_MAIN_PATHS = (("int8", "pallas", "int8"),
+                  ("int8_all", "pallas", "int8_all"),
+                  ("xla", "xla", "none"))
+INDEX_CAPTIONS = 2048
+# the two-process runs: (images, prompt rows) of the tiny one
+TINY_PROCS = dict(images=4, max_len=5, top_k=16, iters=2)
+
+
+def phase_route_agreement() -> None:
+    """Tiny fp32 captioners under the int8 tiers and the XLA routes: the
+    card's caption ids must be the CPU's. The XLA routes launch no
+    attention kernel, and int8 under pallas_out no attention_with_out."""
+    for label, cfg_kw, run_kw in ROUTE_CASES:
+        cfg = ConzicConfig(dtype="float32", **cfg_kw)
+        cpu, gpu, emb, emb_err = tiny_pair(cfg)
+        args = run_args(max_len=5, top_k=16, max_iter=2, n_samples=2,
+                        **run_kw)
+        a = cpu.run(emb, rng=np.random.RandomState(7), **args)
+        reset_launches()
+        b = gpu.run(emb, rng=np.random.RandomState(7), **args)
+        launches = read_launches()
+        same, _, cos_err = compare_runs(a, b)
+        say(f"agreement [route: {label}]: caption ids identical={same} max "
+            f"cosine diff={cos_err:.3g} (tol {AGREE_COS_ATOL:g}) image "
+            f"embed diff={emb_err:.3g} launches={launches}")
+        if not same or cos_err > AGREE_COS_ATOL:
+            raise AssertionError(f"GPU and CPU runs differ (route: {label})")
+        banned = (["masked_attention", "attention_with_out",
+                   "attention_block"] if cfg.attn_impl in XLA_IMPLS else
+                  ["attention_with_out"] if cfg.attn_impl == "pallas_out"
+                  else [])
+        if any(launches[n] for n in banned) or launches["layer_norm"] <= 0:
+            raise AssertionError(f"route {label}: launches {launches}")
+
+
+def thread_launch_race(reps: int = 4000) -> None:
+    """Two host threads launch ``masked_attention`` on one card at two
+    shapes that take the same tensor-core kernel with different shared
+    memory (N=800 and N=4 rows, Sq=16, Sk=24, H=8, D=64, bf16, causal),
+    as two replicas of a mesh do. The kernel's shared-memory limit is an
+    attribute of the function; set to each launch's own size it raced and
+    a launch failed now and then (``csrc/attention_mma.cuh``
+    ``allow_shared``). Every launch must succeed."""
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    shapes = {}
+    for N in (800, 4):
+        q, k, v = [torch.randn(N, 24, 8, 64, device=DEVICE, generator=gen)
+                   .bfloat16() for _ in range(3)]
+        shapes[N] = (q[:, :16].contiguous(), k, v)
+    failures: List[str] = []
+
+    def loop(N: int) -> None:
+        q, k, v = shapes[N]
+        with torch.inference_mode():
+            for _ in range(reps):
+                try:
+                    masked_attention(q, k, v, causal=True)
+                except RuntimeError as e:
+                    failures.append(str(e))
+
+    threads = [threading.Thread(target=loop, args=(N,)) for N in shapes]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    say(f"thread race [masked_attention, two threads on one card, N=800 "
+        f"and N=4]: {len(failures)} failed launches of {2 * reps}"
+        + (f" ({failures[0]})" if failures else ""))
+    if failures:
+        raise AssertionError("concurrent launches failed")
+
+
+def phase_mesh_agreement() -> None:
+    """A data mesh of two replicas on the one card ([cuda:0, cuda:0], one
+    thread each) captions a ragged batch (3 images x 2 samples, padded to
+    the mesh): ids equal to one CPU's. A mesh of more cards than the
+    machine has is refused."""
+    cfg = ConzicConfig(dtype="float32")
+    cpu = Captioner.from_random(config=cfg, seed=0, device="cpu")
+    mesh = make_mesh(2, devices=["cuda:0", "cuda:0"])
+    gpu = Captioner(copy.deepcopy(cpu.bert_model),
+                    copy.deepcopy(cpu.clip_model), cpu.wp, cpu.bpe, cfg,
+                    mesh=mesh)
+    emb = cpu.encode_images(seeded_pixels(cpu, 3))
+    for order in ("sequential", "shuffle"):
+        args = run_args(max_len=5, top_k=16, max_iter=2, order=order,
+                        n_samples=2)
+        a = cpu.run(emb, rng=np.random.RandomState(7), **args)
+        b = gpu.run(emb, rng=np.random.RandomState(7), **args)
+        same, _, cos_err = compare_runs(a, b)
+        say(f"agreement [mesh cuda:0 x 2, {order}]: caption ids identical="
+            f"{same} max cosine diff={cos_err:.3g}")
+        if not same or cos_err > AGREE_COS_ATOL:
+            raise AssertionError(f"the mesh run differs from the CPU's "
+                                 f"({order})")
+    thread_launch_race()
+    n = torch.cuda.device_count() + 1
+    try:
+        make_mesh(n)
+    except ValueError as e:
+        say(f"mesh refusal: make_mesh({n}) on {n - 1} card(s): {e}")
+    else:
+        raise AssertionError(f"make_mesh({n}) was not refused")
+
+
+def process_group(cmd_of: Callable[[int, int], List[str]], n: int,
+                  cwd: str, timeout: int, what: str) -> List[str]:
+    """``n`` processes, ``cmd_of(port, rank)`` each, that join one gloo
+    group at ``tcp://localhost:port``, on this machine's cards (rank %
+    cards); returns their output. Each writes it to a file: read from
+    pipes one process at a time, a process whose pipe is full would stop
+    while the others wait for it at the group's barrier. A failed or
+    stuck process fails the phase, and every process is ended."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT", "CONZIC_MULTIHOST")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here, env.get("PYTHONPATH")) if p)
+    out_dir = scratch_dir("process_group")
+    files = [open(os.path.join(out_dir, f"rank{rank}.log"), "w+")
+             for rank in range(n)]
+    procs = [subprocess.Popen(
+        cmd_of(port, rank), cwd=cwd, env=env, stdout=f,
+        stderr=subprocess.STDOUT, text=True)
+        for rank, f in enumerate(files)]
+    end = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(end - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        logs = []
+        for f in files:
+            f.seek(0)
+            logs.append(f.read())
+            f.close()
+        shutil.rmtree(out_dir)
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"process {rank} ({what}) failed:\n"
+                                 f"{log[-4000:]}")
+    return logs
+
+
+def phase_two_process_tiny(n: int = 2) -> None:
+    """``n`` processes on the cards (two share the one card), gloo between
+    them: each computes its block of the CPU's image embeddings, all are
+    gathered, each captions its block of rows on its card and the results
+    are gathered. The ids must be one CPU process's."""
+    cfg = ConzicConfig(dtype="float32")
+    cpu = Captioner.from_random(config=cfg, seed=0, device="cpu")
+    t = TINY_PROCS
+    emb = cpu.encode_images(seeded_pixels(cpu, t["images"]))
+    a = cpu.run(emb, rng=np.random.RandomState(7), **run_args(
+        max_len=t["max_len"], top_k=t["top_k"], max_iter=t["iters"],
+        order="shuffle", n_samples=2))
+    work = scratch_dir("two_process_tiny")
+    out = os.path.join(work, "rank0.json")
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    process_group(lambda port, rank: [
+        sys.executable, os.path.join(here, "chip_smoke.py"), "--worker",
+        "tiny", str(port), str(rank), str(n), out], n, here, timeout=300,
+        what="chip_smoke.py --worker tiny")
+    with open(out) as f:
+        got = json.load(f)
+    same = (np.array_equal(np.asarray(got["iter_ids"]), a.iter_ids)
+            and np.array_equal(np.asarray(got["best_ids"]), a.best_ids))
+    where = ("two processes on the card" if n == 2 else
+             f"{n} processes on {torch.cuda.device_count()} cards")
+    say(f"agreement [{where}, gloo]: caption ids identical={same} to one "
+        f"CPU process ({time.perf_counter() - t0:.1f} s with the "
+        f"processes' start)")
+    shutil.rmtree(work)
+    if not same:
+        raise AssertionError("the two-process run differs from the CPU's")
+
+
+def run_worker(kind: str, port: str, rank: int, world: int,
+               out: str) -> int:
+    """One process of the tiny multi-process run (``--worker tiny``)."""
+    if kind != "tiny":
+        raise ValueError(f"unknown worker kind {kind!r}")
+    dist_lib.initialize(f"localhost:{port}", world, rank)
+    dev = dist_lib.local_device()
+    torch.cuda.set_device(dev)
+    build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = TINY_PROCS
+    cfg = ConzicConfig(dtype="float32")
+    cpu = Captioner.from_random(config=cfg, seed=0, device="cpu")
+    gpu = Captioner(copy.deepcopy(cpu.bert_model),
+                    copy.deepcopy(cpu.clip_model), cpu.wp, cpu.bpe, cfg,
+                    device=dev)
+    pixels = seeded_pixels(cpu, t["images"])
+    local = cpu.encode_images(pixels[dist_lib.local_slice(t["images"])])
+    emb = dist_lib.put_local_shard(local, t["images"], dev)
+    res = gpu.run(emb, rng=np.random.RandomState(7), **run_args(
+        max_len=t["max_len"], top_k=t["top_k"], max_iter=t["iters"],
+        order="shuffle", n_samples=2))
+    if dist_lib.is_primary():
+        with open(out, "w") as f:
+            json.dump(dict(iter_ids=res.iter_ids.tolist(),
+                           best_ids=res.best_ids.tolist()), f)
+    dist_lib.shutdown()
+    return 0
+
+
+def phase_cli_multihost(cli: dict, iters: int, n: int = 2) -> dict:
+    """``python -m conzic_torch.api.run --multihost`` in ``n`` processes
+    (two share the one card; on several cards, one a card), with phase
+    6's arguments over its PNG scenes: each process decodes its block of
+    the batch and captions its rows, gloo gathers the results and process
+    0 alone writes the tree. The tree must be complete, written once, and
+    hold the one-process command's captions (``cli``, phase 6). caps/s of
+    the whole batch over the slowest process's generation (its
+    ``Finished in`` line) and over the command's wall time (the
+    processes' start, the towers' build, decode and generation)."""
+    B = MAIN["batch"]
+    work = scratch_dir("cli_multihost")
+    t0 = time.perf_counter()
+    process_group(lambda port, rank: [
+        sys.executable, "-m", "conzic_torch.api.run", *cli["argv"],
+        "--multihost", "--coordinator_address", f"localhost:{port}",
+        "--num_processes", str(n), "--process_id", str(rank)],
+        n, work, timeout=600, what="api.run --multihost")
+    wall = time.perf_counter() - t0
+    tree = check_results_tree(work, iters, B)
+    lines = []
+    for name in sorted(os.listdir(os.path.join(work, "logger"))):
+        with open(os.path.join(work, "logger", name),
+                  encoding="utf-8") as f:
+            lines += f.read().splitlines()
+    saved = sum("saved results to" in x for x in lines)
+    gen = [float(x.split()[2].rstrip("s")) for x in lines
+           if x.startswith("Finished in")]
+    got = read_tree(tree)
+    same = sum(got[name][img] == cap
+               for name, caps in cli["captions"].items()
+               for img, cap in caps.items())
+    total = sum(len(caps) for caps in cli["captions"].values())
+    where = ("two processes on one card" if n == 2 else
+             f"{n} processes on {torch.cuda.device_count()} cards")
+    gen_s = max(gen) if gen else float("nan")
+    say(f"cli multihost [{where}, gloo]: api.run --multihost over the "
+        f"{B} PNG scenes, {B // n} a process: tree written {saved} time(s), "
+        f"{same} of {total} captions equal the one-process command's; "
+        f"generation (slowest 'Finished in' of {len(gen)}) {gen_s:.3f} s, "
+        f"{B / gen_s:.4f} caps/s against one process's "
+        f"{B / cli['generation_s']:.4f}; {wall:.3f} s wall for the "
+        f"command, {B / wall:.4f} caps/s against one process's "
+        f"{B / cli['wall_s']:.4f}; card {card_line()}")
+    shutil.rmtree(work)
+    shutil.rmtree(cli["work"])
+    if saved != 1 or len(gen) != n:
+        raise AssertionError(f"api.run --multihost: tree saved {saved} "
+                             f"times, {len(gen)} generations logged")
+    if same != total:
+        raise AssertionError(f"api.run --multihost: {total - same} "
+                             f"captions differ from one process's")
+    return dict(caps_s=B / gen_s, wall_caps_s=B / wall, share=same / total)
+
+
+def phase_int8_matmul(shape: dict) -> dict:
+    """The int8 product at the main path's text MLP shape (the suffix
+    chunk's rows x 512 -> 2048): the card's int32 product equal to the
+    CPU's, then the times of the quantized ``Linear`` (row quantization,
+    ``torch._int_mm``, rescale, bias), of ``torch._int_mm`` alone and of
+    ``F.linear`` in bf16."""
+    t_cfg = CLIPConfig().text
+    rows = shape["rows"] * shape["S_suf"]
+    E, F_ = t_cfg.hidden_size, t_cfg.intermediate_size
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x = torch.randn(rows, E, device=DEVICE, generator=gen).to(torch.bfloat16)
+    lin = Linear(E, F_, dtype=torch.bfloat16, quant="int8").to(DEVICE)
+    with torch.no_grad():
+        lin.weight.copy_(0.02 * torch.randn(F_, E, device=DEVICE,
+                                            generator=gen))
+        lin.bias.copy_(0.02 * torch.randn(F_, device=DEVICE, generator=gen))
+    qw = lin.quantized_weight()
+    xq, _ = quant._quantize_rows(x)
+    card = quant.int_mm(xq, qw.q)
+    cpu = quant.int_mm(xq[:256].cpu(), qw.q.cpu())
+    if card.dtype != torch.int32 or not torch.equal(card[:256].cpu(), cpu):
+        raise AssertionError("the card's int32 product differs from the "
+                             "CPU's")
+    small = quant.int_mm(xq[:3], qw.q)  # padded to cuBLASLt's 17 rows
+    if not torch.equal(small.cpu(), quant.int_mm(xq[:3].cpu(),
+                                                 qw.q.cpu())):
+        raise AssertionError("the padded int32 product differs")
+    w16, b16 = lin.weight.to(torch.bfloat16), lin.bias.to(torch.bfloat16)
+    _, sx = quant._quantize_rows(x)
+    bias = lin.bias.float()
+
+    def epilogue():  # the int32 product rescaled, biased and cast
+        return ((card.float() * sx * qw.scale) + bias).to(torch.bfloat16)
+
+    with torch.inference_mode():
+        int8_ms = time_ms(lambda: lin(x), 20)
+        quantize_ms = time_ms(lambda: quant._quantize_rows(x), 20)
+        mm_ms = time_ms(lambda: quant.int_mm(xq, qw.q), 20)
+        epilogue_ms = time_ms(epilogue, 20)
+        bf16_ms = time_ms(lambda: F.linear(x, w16, b16), 20)
+    flops = 2.0 * rows * E * F_
+    say(f"int8_matmul [{rows}x{E} @ {E}x{F_}]: int32 product equal to the "
+        f"CPU's; quantized Linear {int8_ms:.4f} ms = row quantization "
+        f"{quantize_ms:.4f} + torch._int_mm {mm_ms:.4f} "
+        f"({flops / mm_ms / 1e9:.1f} TOP/s) + fp32 rescale, bias and cast "
+        f"{epilogue_ms:.4f}, against F.linear bf16 {bf16_ms:.4f} ms "
+        f"({flops / bf16_ms / 1e9:.1f} TFLOP/s); card {card_line()}")
+    return dict(int8_ms=int8_ms, quantize_ms=quantize_ms, int_mm_ms=mm_ms,
+                epilogue_ms=epilogue_ms, bf16_ms=bf16_ms)
+
+
+def _scene_png(seed: int = 0) -> bytes:
+    img = synthetic.build_dataset(1, seed=seed, image_size=224)[0][0]
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def phase_app(cap: Captioner) -> dict:
+    """The web app's fallback server on the full-width captioner: a GET of
+    the page, then two POSTs of a rendered scene at the UI's defaults
+    (caption, shuffle, 10 words, 10 iterations, 2 samples); each answer
+    must hold two final and two best captions, and the two answers are
+    equal (Submit reseeds)."""
+    cfg = ConzicConfig(clip_len=MAIN["clip_len"])
+    cap.cfg.verbose = False
+    server = fallback_ui.make_server(cap, cfg, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1",
+                                          server.server_address[1],
+                                          timeout=300)
+        conn.request("GET", "/")
+        page = conn.getresponse().read().decode("utf-8")
+        if "Upload Picture" not in page or "Best Caption" not in page:
+            raise AssertionError("the fallback page lacks its widgets")
+        values = dict(zip(
+            ("run_type", "control_type", "sentiment_type", "order",
+             "prompt", "sentence_len", "num_iterations", "samples_num",
+             "alpha", "beta", "gamma"), app_mod.reset_values()))
+        payload = json.dumps(dict(values, image="data:image/png;base64,"
+                                  + base64.b64encode(_scene_png()).decode()))
+        answers, latencies = [], []
+        for _ in range(2):
+            t = time.perf_counter()
+            conn.request("POST", "/submit", body=payload,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            latencies.append(time.perf_counter() - t)
+            if resp.status != 200 or "error" in body:
+                raise AssertionError(f"POST failed: {resp.status} {body}")
+            if (len(body["final"].splitlines()) != 2
+                    or len(body["best"].splitlines()) != 2):
+                raise AssertionError(f"expected two samples: {body}")
+            answers.append(body)
+    finally:
+        server.shutdown()
+        server.server_close()
+    if answers[0] != answers[1]:
+        raise AssertionError("two POSTs of one request differ")
+    say(f"app [fallback server, full width, k={cfg.candidate_k}, UI "
+        f"defaults]: POST latency {latencies[0]:.3f} s then "
+        f"{latencies[1]:.3f} s (2 samples x 10 iterations x 10 words, B=1); "
+        f"final captions {answers[0]['final'].splitlines()!r}; card "
+        f"{card_line()}")
+    return dict(latency_s=latencies)
+
+
+def phase_index(cap: Captioner) -> dict:
+    """``build_index`` over 2,048 captions of the synthetic world at full
+    width (chunks of 128 at CLIP's 77 tokens): captions/s of the whole
+    call (encode and writing the text files); then the index read back
+    and one search for a rendered scene."""
+    rng = np.random.RandomState(0)
+    corpus = [synthetic.caption_scene(synthetic.sample_scene(rng), rng)
+              for _ in range(INDEX_CAPTIONS)]
+    work = scratch_dir("index")
+    with open(os.path.join(work, "corpus.json"), "w") as f:
+        json.dump(corpus, f)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    emb = retrieval.build_index(cap, os.path.join(work, "corpus.json"),
+                                os.path.join(work, "index"))
+    build_s = time.perf_counter() - t
+    if emb.shape[0] != INDEX_CAPTIONS or not np.isfinite(emb).all():
+        raise AssertionError(f"index of shape {emb.shape}, finite="
+                             f"{np.isfinite(emb).all()}")
+    index = retrieval.CLIPIndex(os.path.join(work, "index",
+                                             "index_matrix.txt"),
+                                os.path.join(work, "index",
+                                             "mapping_dict.json"), cap)
+    scene = os.path.join(work, "scene.png")
+    with open(scene, "wb") as f:
+        f.write(_scene_png(seed=1))
+    t = time.perf_counter()
+    pred = index.search_text(scene)
+    search_s = time.perf_counter() - t
+    if pred not in corpus or index.matrix.shape != emb.shape:
+        raise AssertionError(f"search gave {pred!r}")
+    say(f"index [build_index, full width]: {INDEX_CAPTIONS} captions in "
+        f"{build_s:.3f} s, {INDEX_CAPTIONS / build_s:.1f} captions/s; one "
+        f"search {search_s * 1e3:.1f} ms -> {pred!r}; card {card_line()}")
+    shutil.rmtree(work)
+    return dict(captions_s=INDEX_CAPTIONS / build_s, search_s=search_s)
+
+
+def _mesh_launches(cap: Captioner, iters: int) -> Dict[str, int]:
+    """What the engine's structure gives for one main-path generation on
+    ``cap``'s mesh: the image tower once (on the first card), the prompt
+    prefix and every Gibbs step once per data row, each row with its
+    block of the batch."""
+    rows = len(cap.mesh)
+    steps = iters * MAIN["sentence_len"]
+    once, step = expected_launches(cap, n_row_chunks(
+        MAIN["batch"] // rows, MAIN["top_k"], MAIN["row_chunk"]))
+    nt = cap.clip_model.config.text.num_layers
+    prefix = {"layer_norm": 2 * nt + 1, "masked_attention": nt}
+    return {k: once[k] + (rows - 1) * prefix.get(k, 0) + rows * steps * v
+            for k, v in step.items()}
+
+
+def phase_mesh_main(iters: int, cap: Captioner, pixels, one: dict,
+                    label: str) -> dict:
+    """The main path on ``cap``'s mesh (one replica and one thread a data
+    row): caps/s against one card's, launch counts against the engine's
+    structure, and the share of best ids equal to one card's."""
+    L = MAIN["sentence_len"]
+    args = run_args(max_len=L, top_k=MAIN["top_k"], order="sequential")
+    cap.run(cap.encode_images(pixels), max_iter=1,
+            rng=np.random.RandomState(42), **args)  # warm-up
+    reset_launches()
+    res = cap.run(cap.encode_images(pixels), max_iter=iters,
+                  rng=np.random.RandomState(42), **args)
+    launches = read_launches()
+    want = _mesh_launches(cap, iters)
+    check_output(cap, res, iters, main_shape(cap))
+    seed = main_shape(cap)["seed_len"]
+    want_ids = one["result"].best_ids[:, seed:seed + L]
+    share = float((res.best_ids[:, seed:seed + L] == want_ids).mean())
+    B = MAIN["batch"]
+    say(f"scale [{label}, main path]: {res.elapsed_s:.3f} s, "
+        f"{B / res.elapsed_s:.4f} caps/s against one card's "
+        f"{B / one['result'].elapsed_s:.4f}; launches {launches}, the "
+        f"engine's structure gives {want}; {share:.4f} of the best caption "
+        f"ids equal one card's")
+    if launches != want:
+        raise AssertionError(f"mesh launch counts {launches} != {want}")
+    return dict(caps_s=B / res.elapsed_s, share=share)
+
+
+def phase_scale(iters: int, cards: Optional[List[str]] = None) -> None:
+    """``--scale``: scale-out over every card of the machine (two or
+    more). Tiny fp32 towers on a data mesh of every card and in one
+    process a card: ids equal to the CPU's. Then the main path at full
+    width on one card and on the mesh (caps/s, launch counts, the share
+    of best ids equal to one card's), and the command line over phase 6's
+    scenes in one process and in ``api.run --multihost``, one process a
+    card (the same captions)."""
+    cards = cards or [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    n = len(cards)
+    if n < 2:
+        raise AssertionError(f"--scale needs two or more cards; {n} "
+                             f"visible")
+    build_s = build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"scale: {n} cards, kernels built in {build_s:.2f} s")
+    label, mesh = f"data mesh of {n} cards", make_mesh(n, cards)
+    cfg = ConzicConfig(dtype="float32")
+    cpu = Captioner.from_random(config=cfg, seed=0, device="cpu")
+    emb = cpu.encode_images(seeded_pixels(cpu, 2 * n + 1))  # ragged
+    args = run_args(max_len=5, top_k=16, max_iter=2, order="shuffle",
+                    n_samples=2)
+    a = cpu.run(emb, rng=np.random.RandomState(7), **args)
+    gpu = Captioner(copy.deepcopy(cpu.bert_model),
+                    copy.deepcopy(cpu.clip_model), cpu.wp, cpu.bpe, cfg,
+                    mesh=mesh)
+    b = gpu.run(emb, rng=np.random.RandomState(7), **args)
+    same, _, cos_err = compare_runs(a, b)
+    say(f"scale [{label}, tiny]: caption ids identical={same} to the "
+        f"CPU's, max cosine diff {cos_err:.3g}; replicas on "
+        f"{[str(d) for d in gpu._replicas]}")
+    if not same or cos_err > AGREE_COS_ATOL:
+        raise AssertionError(f"{label}: the card differs from the CPU")
+    phase_two_process_tiny(n)
+    cap = full_captioner("bfloat16")
+    v = cap.clip_model.config.vision
+    pixels = np.random.RandomState(0).rand(
+        MAIN["batch"], v.image_size, v.image_size,
+        v.num_channels).astype(np.float32)
+    one = phase_main(iters, cap, main_shape(cap), pixels, label="one card")
+    meshed = Captioner(cap.bert_model, cap.clip_model, cap.wp, cap.bpe,
+                       cap.cfg, mesh=mesh)
+    phase_mesh_main(iters, meshed, pixels, one, label)
+    del meshed, cap
+    torch.cuda.empty_cache()
+    cli = phase_cli_run(iters, one["launches"])
+    phase_cli_multihost(cli, iters, n)
+
+
 PROFILE_GROUPS = (
     ("layer_norm kernel", ("layer_norm_kernel",)),
     ("masked_attention kernel", ("masked_attention_",)),
     ("attention_with_out kernel", ("attention_with_out_",)),
     ("attention_block kernels", ("attention_block_",)),
-    ("matrix products", ("nvjet", "gemm", "sm90_", "cutlass", "xmma")),
+    ("matrix products", ("nvjet", "gemm", "sm90_", "cutlass", "xmma",
+                         "Gemm", "imma")),
     ("concatenation", ("CatArray",)),
     ("sort (top-k)", ("sort", "Sort", "radix")),
     ("gather / index", ("gather", "index", "Index", "scatter")),
@@ -1902,10 +2501,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=15,
                     help="Gibbs iterations of the main-path run")
-    ap.add_argument("--profile", nargs="*", default=None, choices=ATTN_IMPLS,
-                    metavar="ATTN_IMPL",
+    ap.add_argument("--profile", nargs="*", default=None,
+                    choices=KERNEL_IMPLS + tuple(
+                        label for label, _, _ in NEW_MAIN_PATHS),
+                    metavar="ROUTE",
                     help="also profile one iteration of the main path under "
-                         "each attn_impl named (pallas when none is)")
+                         "each attn_impl or new path named (pallas when "
+                         "none is)")
     ap.add_argument("--trees", nargs="+", metavar="DIR",
                     help="only run the main path in each of these "
                          "checkouts, in this order, and print its caps/s")
@@ -1914,11 +2516,21 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="with --trees: time each tree's kernels at the "
                          "main-path shapes (phase 2's times) instead")
+    ap.add_argument("--worker", nargs=5, metavar=("KIND", "PORT", "RANK",
+                                                  "WORLD", "OUT"),
+                    help="one process of the multi-process runs (started "
+                         "by this script)")
+    ap.add_argument("--scale", action="store_true",
+                    help="only the scale-out phase, over every card of the "
+                         "machine (two or more)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
               "port on an NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.worker:
+        kind, port, rank, world, out = args.worker
+        return run_worker(kind, port, int(rank), int(world), out)
     t_start = time.perf_counter()
     card = card_line()
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1927,6 +2539,13 @@ def main(argv=None) -> int:
     if args.trees:
         compare_trees(args.trees, args.reps, args.iters,
                       "kernels" if args.kernels else "main")
+        return 0
+    if args.scale:
+        phase_scale(args.iters)
+        say(card_line())
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return 0
     build_s = build.build_all()
     say(f"kernels built in {build_s:.2f} s from conzic_torch/csrc "
@@ -1956,6 +2575,12 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     phase_pruned_agreement()
     say(f"phase pruned agreement ok ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    phase_route_agreement()
+    phase_mesh_agreement()
+    phase_two_process_tiny()
+    say(f"phase route and scale-out agreement ok "
+        f"({time.perf_counter() - t:.1f} s)")
 
     v = cap.clip_model.config.vision
     pixels = np.random.RandomState(0).rand(
@@ -1963,7 +2588,7 @@ def main(argv=None) -> int:
         v.num_channels).astype(np.float32)
     L, seed = MAIN["sentence_len"], shape["seed_len"]
     main = {}
-    for impl in ATTN_IMPLS:
+    for impl in KERNEL_IMPLS:
         t = time.perf_counter()
         if impl != cap.cfg.attn_impl:
             del cap
@@ -1997,6 +2622,42 @@ def main(argv=None) -> int:
     del cap
     torch.cuda.empty_cache()
 
+    new_paths = {}
+    for label, impl, tier in NEW_MAIN_PATHS:
+        t = time.perf_counter()
+        cap = full_captioner("bfloat16", impl, tier)
+        new_paths[label] = phase_main(args.iters, cap, shape, pixels,
+                                      label=label)
+        if args.profile and label in args.profile:
+            phase_profile(cap, new_paths[label]["embeds"], label)
+        same = float((new_paths[label]["result"].best_ids[:, seed:seed + L]
+                      == main["pallas"]["result"].best_ids[:, seed:seed + L]
+                      ).mean())
+        say(f"phase main path [{label}] ok ({time.perf_counter() - t:.1f} "
+            f"s); {same:.4f} of its best caption ids equal the bf16 pallas "
+            f"run's; {new_paths[label]['s_per_step']:.5f} s per Gibbs step "
+            f"against pallas's {main['pallas']['s_per_step']:.5f}")
+        del cap
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    phase_int8_matmul(shape)
+    cap = full_captioner("bfloat16")
+    phase_app(cap)
+    phase_index(cap)
+    del cap
+    torch.cuda.empty_cache()
+    # the split of phase 6's two processes, on threads of one process: two
+    # replicas on the card
+    cap = full_captioner("bfloat16")
+    phase_mesh_main(args.iters, Captioner(
+        cap.bert_model, cap.clip_model, cap.wp, cap.bpe, cap.cfg,
+        mesh=make_mesh(2, devices=["cuda:0", "cuda:0"])), pixels,
+        main["pallas"], "two replicas on cuda:0, one thread each")
+    del cap
+    torch.cuda.empty_cache()
+    say(f"phase int8 product, app, index and two threads ok "
+        f"({time.perf_counter() - t:.1f} s)")
+
     t = time.perf_counter()
     phase_fp32(pixels, main["pallas"]["result"], shape)
     say(f"phase fp32 ok ({time.perf_counter() - t:.1f} s)")
@@ -2009,6 +2670,7 @@ def main(argv=None) -> int:
     # pallas's counts are what the engine's structure gives
     t = time.perf_counter()
     cli = phase_cli_run(args.iters, main["pallas"]["launches"])
+    phase_cli_multihost(cli, args.iters)
     phase_cli_demo()
     say(f"phase cli ok ({time.perf_counter() - t:.1f} s)")
     t = time.perf_counter()
@@ -2026,6 +2688,8 @@ def main(argv=None) -> int:
             launches_by_attn_impl={impl: run["launches"][name]
                                    for impl, run in main.items()},
             launches_cli_run=cli["launches"][name],
+            launches_new_paths={label: run["launches"][name]
+                                for label, run in new_paths.items()},
             launches_pruned={read: run["launches"][name]
                              for read, run in pruned.items()},
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],

@@ -1,2 +1,3 @@
-"""The command-line entry points: ``demo`` (one image) and ``run`` (a
-directory of images into the reference's results tree)."""
+"""The entry points: ``demo`` (one image), ``run`` (a directory of images
+into the reference's results tree), ``app`` (the web UI) and
+``retrieval`` (the CLIP text index and its nearest-caption baseline)."""

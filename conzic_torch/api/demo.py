@@ -22,6 +22,8 @@ import argparse
 import os
 import sys
 
+import torch
+
 from conzic_torch.config import add_reference_args, config_from_args
 from conzic_torch.engine.sampler import (
     Captioner,
@@ -32,24 +34,44 @@ from conzic_torch.runtime.logging import create_logger, run_log_filename
 from conzic_torch.runtime.seeding import set_seed
 
 
-def build_captioner(cfg, random_models=False, device="cuda") -> Captioner:
+def build_mesh(cfg, device="cuda"):
+    """The data mesh of ``--mesh_data_axis``: None for 1 (one device);
+    else that many of the visible devices of ``device``'s kind (0 or
+    less: all of them); the program ends with a message when fewer are
+    visible."""
+    if cfg.mesh_data_axis == 1:
+        return None
+    from conzic_torch.parallel import mesh as mesh_lib
+
+    n = cfg.mesh_data_axis if cfg.mesh_data_axis > 0 else None
+    try:
+        return mesh_lib.make_mesh(
+            n, devices=mesh_lib.visible_devices(torch.device(device).type))
+    except ValueError as e:
+        raise SystemExit(f"conzic_torch: --mesh_data_axis: {e}") from None
+
+
+def build_captioner(cfg, random_models=False, device="cuda",
+                    mesh=None) -> Captioner:
     if random_models:
         from conzic_torch.models.configs import BertConfig, CLIPConfig
         from conzic_torch.text.vocab import make_fullsize_wordpiece_vocab
 
         if random_models == "tiny":  # fast smoke runs
-            return Captioner.from_random(cfg, seed=cfg.seed, device=device)
+            return Captioner.from_random(cfg, seed=cfg.seed, device=device,
+                                         mesh=mesh)
         return Captioner.from_random(
             cfg, bert_config=BertConfig(), clip_config=CLIPConfig(),
             wp_vocab=make_fullsize_wordpiece_vocab(),
-            clip_text_vocab_size=49408, seed=cfg.seed, device=device)
+            clip_text_vocab_size=49408, seed=cfg.seed, device=device,
+            mesh=mesh)
     for path in (cfg.lm_model, cfg.match_model):
         if not os.path.isdir(path):
             sys.exit(
                 f"checkpoint directory not found: {path!r}\n"
                 "Pass local HF checkpoint dirs via --lm_model/--match_model "
                 "or use --random_models for a no-checkpoint smoke run.")
-    return Captioner.from_pretrained(cfg, device=device)
+    return Captioner.from_pretrained(cfg, device=device, mesh=mesh)
 
 
 def _open_image(cfg, image_path, captioner, logger):
@@ -137,7 +159,8 @@ def main(argv=None):
         sys.exit(f"image not found: {cfg.caption_img_path!r}")
 
     captioner = build_captioner(cfg, random_models=args.random_models,
-                                device=args.device)
+                                device=args.device,
+                                mesh=build_mesh(cfg, args.device))
     if cfg.run_type == "caption":
         run_caption(cfg, cfg.caption_img_path, captioner, logger, rng,
                     fuse_samples=not args.no_fuse_samples)

@@ -83,3 +83,10 @@ def update_token_mask(tokenizer, token_mask, max_len, index):
     if period is not None:
         mask[..., period] = 1.0 if index == max_len - 1 else 0.0
     return mask
+
+
+def format_output(sample_num, final_caption, best_caption):
+    """``utils.format_output``: the first samples joined by newlines."""
+    from conzic_torch.api.app import format_output as _format_output
+
+    return _format_output(sample_num, final_caption, best_caption)

@@ -6,12 +6,11 @@ reference CLIs' flags (names and defaults) and the fields that
 ``Captioner`` reads, and ``add_reference_args`` / ``config_from_args``,
 which every entry point shares. :meth:`ConzicConfig.validate` refuses the
 combinations of the pruned tiers' knobs that the reference refuses, with
-its messages. The knobs of paths not ported (the int8 tier, the mesh) parse
-and are held at their defaults: any other value raises
-``NotImplementedError`` naming the knob.
+its messages.
 
-XLA's own knobs: ``scan_layers`` is refused like an unported tier (the port
-runs unrolled layers); ``--compiler_options`` is accepted and ignored, as
+XLA's own knobs: ``scan_layers`` is refused with ``NotImplementedError``
+naming it (the port runs unrolled layers); ``--compiler_options`` is
+accepted and ignored, as
 the reference ignores it on every backend but the TPU. So is
 ``allow_deep_stage1``: it lifts the reference's guard on the depth of a
 ``lax.map``, and the port has no map.
@@ -23,11 +22,9 @@ import argparse
 import dataclasses
 from typing import List, Optional
 
-# knob -> the only value the port supports so far
+# knob -> the only value the port supports
 _UNPORTED = {
-    "quant": "none",
     "scan_layers": False,
-    "mesh_data_axis": 1,
 }
 # the host modes: "table" runs on the device; "exact" runs the reference's
 # decode and re-tokenize (bridge_mode) or sentence-level tagging (ctl_mode)
@@ -35,11 +32,11 @@ _UNPORTED = {
 HOST_MODES = ("table", "exact")
 # attention routes, by the reference's names (conzic_tpu/models/layers.py
 # MultiHeadAttention): which hand-written kernel carries an attention block
-ATTN_IMPLS = ("pallas", "pallas_out", "pallas_block")
-# the reference's other values name XLA's own fusion of the attention chain
-# ("xla", its default, and "xla_bhsd") or a plain-jnp formulation
-# ("twoblock"); none has a counterpart on the card
-_UNPORTED_ATTN_IMPLS = ("xla", "xla_bhsd", "twoblock")
+KERNEL_IMPLS = ("pallas", "pallas_out", "pallas_block")
+# and the reference's own formulations ("xla", its default, "xla_bhsd",
+# "twoblock"): plain PyTorch products on the card, no hand-written kernel
+ATTN_IMPLS = KERNEL_IMPLS + ("xla", "xla_bhsd", "twoblock")
+QUANT_TIERS = ("none", "int8", "int8_all")
 
 DEFAULT_POS_TEMPLATE: List[List[str]] = [
     ["DET"], ["ADJ", "NOUN"], ["NOUN"], ["VERB"], ["VERB"], ["ADV"],
@@ -94,9 +91,11 @@ class ConzicConfig:
     clip_pad_to: int = -1
     # "pallas": every attention through the masked-attention kernel;
     # "pallas_out": suffix-over-prefix attention fused with its output
-    # projection; "pallas_block": full-row attention blocks as one kernel.
-    # The reference defaults to "xla", attention left to its compiler; the
-    # card has no such route, so the default here is the kernel route.
+    # projection; "pallas_block": full-row attention blocks as one kernel;
+    # "xla", "xla_bhsd", "twoblock": the reference's einsum formulations
+    # as plain PyTorch products (the library route). The reference
+    # defaults to "xla", attention left to its compiler; the default here
+    # is the kernel route.
     attn_impl: str = "pallas"
     # candidate CLIP-id assembly: "table" = the on-device bridge table;
     # "exact" = the reference's decode -> re-tokenize of every candidate
@@ -147,10 +146,13 @@ class ConzicConfig:
     # stop-mask lookup of the top-k ids: "gather" from the (V,) mask, or
     # "compare" against the banned-id lists; the same ids either way
     mask_impl: str = "gather"
-    # not ported (validate() refuses other values)
+    # the int8 tier (not parity): "int8" multiplies the CLIP text tower's
+    # projections and MLPs in int8, "int8_all" BERT's encoder too
     quant: str = "none"
-    scan_layers: bool = False
+    # devices to split the (images x samples) batch over: 1 = one device,
+    # N = a data mesh of N, 0 or less = every visible device
     mesh_data_axis: int = 1
+    scan_layers: bool = False  # refused: the port runs unrolled layers
 
     def validate(self) -> None:
         for knob, supported in _UNPORTED.items():
@@ -162,12 +164,11 @@ class ConzicConfig:
             if getattr(self, knob) not in HOST_MODES:
                 raise ValueError(f"unknown {knob} {getattr(self, knob)!r} "
                                  f"(one of {HOST_MODES})")
-        if self.attn_impl in _UNPORTED_ATTN_IMPLS:
-            raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r} has no counterpart in "
-                f"conzic_torch (one of {ATTN_IMPLS})")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
+        if self.quant not in QUANT_TIERS:
+            raise ValueError(f"unknown quant {self.quant!r} (one of "
+                             f"{QUANT_TIERS})")
         for knob in ("dtype", "param_dtype"):
             if getattr(self, knob) not in ("bfloat16", "float32"):
                 raise ValueError(f"unknown {knob} {getattr(self, knob)!r}")
@@ -254,9 +255,8 @@ _PRUNE_FLAGS = (
 
 def add_reference_args(p: argparse.ArgumentParser) -> None:
     """The reference CLIs' flags, with ``--device cuda|cpu`` (the card
-    unless the CPU is asked for). The flags of unported tiers parse; a
-    value other than the default ends in ``config_from_args``, as does a
-    combination of the pruned tiers' flags that the reference refuses."""
+    unless the CPU is asked for). A combination of the pruned tiers' flags
+    that the reference refuses ends in ``config_from_args``."""
     d = ConzicConfig()
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--batch_size", type=int, default=d.batch_size)
@@ -303,7 +303,7 @@ def add_reference_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--clip_len", type=int, default=d.clip_len)
     p.add_argument("--clip_pad_to", type=int, default=d.clip_pad_to)
     p.add_argument("--attn_impl", type=str, default=d.attn_impl,
-                   choices=ATTN_IMPLS + _UNPORTED_ATTN_IMPLS)
+                   choices=ATTN_IMPLS)
     for knob, kind, help_ in _PRUNE_FLAGS:
         p.add_argument(f"--{knob}", type=kind, default=getattr(d, knob),
                        choices=_CHOICES.get(knob), help=help_)
@@ -312,14 +312,16 @@ def add_reference_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--allow_deep_stage1", action="store_true",
                    help="the reference's override of a TPU runtime guard; "
                         "accepted, no effect here")
-    # the unported tiers: parsed, refused unless at their defaults
-    for knob, default in _UNPORTED.items():
-        if knob == "scan_layers":  # a config field only, as in the reference
-            continue
-        if isinstance(default, bool):
-            p.add_argument(f"--{knob}", action="store_true", default=default)
-        else:
-            p.add_argument(f"--{knob}", type=type(default), default=default)
+    p.add_argument("--quant", type=str, default=d.quant, choices=QUANT_TIERS,
+                   help="int8: the CLIP text tower's products in int8 (not "
+                        "parity); int8_all: BERT's encoder too")
+    p.add_argument("--mesh_data_axis", type=int, default=d.mesh_data_axis,
+                   help="devices to split the (images x samples) batch "
+                        "over, one thread a device in this process: 1 = "
+                        "one, 0 = every visible device. Slower than one "
+                        "card on the H100 (the threads share one "
+                        "interpreter); for several cards run one process "
+                        "a card with --multihost")
     p.add_argument("--compiler_options", type=str, default="",
                    help="XLA's options in the reference; accepted and "
                         "ignored here")

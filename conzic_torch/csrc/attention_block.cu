@@ -178,9 +178,8 @@ int launch(const void* x, const void* res, const Weights& p, int b_bf16,
            int causal, float scale, cudaStream_t stream) {
   const size_t smem = shared_bytes(S, E / H);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attention_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t e =
+        conzic::mma::allow_shared(attention_block_kernel<T>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   attention_block_kernel<T><<<N, kTileThreads, smem, stream>>>(
@@ -339,9 +338,8 @@ int launch_out(const void* ctx, const void* res, const Weights& p, int b_bf16,
   constexpr int kTileN = tc::tile_n(kNTiles);
   const int stages = tc::stages_that_fit(kOutRingBytes, kNTiles, true);
   const size_t smem = sizeof(bf16) * stages * tc::stage_elems(kNTiles, true);
-  const cudaError_t e = cudaFuncSetAttribute(
-      attention_block_out_kernel<kNTiles>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const cudaError_t e =
+      tc::allow_shared(attention_block_out_kernel<kNTiles>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int chunks = (E + kTileN - 1) / kTileN;
   const int split = std::max(1, std::min(chunks, want_split));
@@ -364,9 +362,8 @@ int launch_mma(const void* x, const void* res, const Weights& p, int b_bf16,
   const size_t smem_qkv =
       qkv_fixed_bytes(G, S, E / H) +
       sizeof(bf16) * stages * tc::stage_elems(kQkvNTiles, true);
-  cudaError_t e = cudaFuncSetAttribute(
-      attention_block_qkv_kernel<kKeyTiles>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_qkv));
+  cudaError_t e =
+      tc::allow_shared(attention_block_qkv_kernel<kKeyTiles>, smem_qkv);
   if (e != cudaSuccess) return static_cast<int>(e);
 
   attention_block_qkv_kernel<kKeyTiles>

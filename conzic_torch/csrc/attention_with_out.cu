@@ -156,9 +156,8 @@ int launch(const void* q, const void* k, const void* v, const int* lens,
            cudaStream_t stream) {
   const size_t smem = shared_bytes(Sq, Sk, H, D);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attention_with_out_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t e =
+        conzic::mma::allow_shared(attention_with_out_kernel<T>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   attention_with_out_kernel<T><<<N, kTileThreads, smem, stream>>>(
@@ -303,10 +302,8 @@ int launch_mma(const void* q, const void* k, const void* v, const int* lens,
                const void* wo, const void* bo, int bo_bf16, void* out, int N,
                int Sq, int Sk, int H, int D, int E, const MmaPlan& plan,
                int causal, float scale, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      attention_with_out_mma_kernel<kKeyTiles>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(plan.smem));
+  const cudaError_t e =
+      tc::allow_shared(attention_with_out_mma_kernel<kKeyTiles>, plan.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   attention_with_out_mma_kernel<kKeyTiles>
       <<<(N + plan.G - 1) / plan.G, tc::kThreads, plan.smem, stream>>>(
@@ -331,7 +328,7 @@ int sm_count(cudaError_t* error) {
 
 // Largest key count and head width the kernels take. A shape whose context
 // (Sq x H * D floats) does not fit the scalar kernel's shared memory beside
-// its tiles is refused at the launch, with cudaFuncSetAttribute's error.
+// its tiles is refused at the launch (cudaErrorInvalidValue).
 CONZIC_EXPORT int conzic_attention_with_out_max_keys() { return kMaxKeys; }
 CONZIC_EXPORT int conzic_attention_with_out_max_head_dim() { return 128; }
 

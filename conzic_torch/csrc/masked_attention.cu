@@ -198,9 +198,8 @@ int launch_scalar(const void* q, const void* k, const void* v, const void* pk,
                   cudaStream_t stream) {
   const size_t smem = shared_bytes(P + Ss, D);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        masked_attention_kernel<T, kVec>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t e =
+        tc::allow_shared(masked_attention_kernel<T, kVec>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   masked_attention_kernel<T, kVec><<<N * H, kWarps * 32, smem, stream>>>(
@@ -409,9 +408,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* pk,
                int Ss, int P, int G, int H, int D, const MmaPlan& plan,
                int sms, int causal, float scale, cudaStream_t stream) {
   auto* kernel = masked_attention_mma_kernel<kKeyTiles>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(plan.smem));
+  cudaError_t e = tc::allow_shared(kernel, plan.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int resident = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(

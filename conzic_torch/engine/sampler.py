@@ -16,10 +16,23 @@ factorized stage-1's calibrated projections
 
 The entry points run on the CUDA device unless the caller names another
 device; they raise when CUDA is missing rather than fall back to the CPU.
+
+Scale-out (``parallel/``): with ``mesh=`` (a list of devices) the
+captioner keeps one replica of the towers on each and ``run`` splits the
+(images x samples) rows into contiguous blocks, one a device, padded with
+copies of the last row; the blocks run on one thread each, as
+``torch.nn.parallel.parallel_apply`` runs replicas, and their results are
+put back in order. The threads share one interpreter and the Gibbs step
+is thousands of small ops: a mesh in one process measured slower than one
+device, while several processes scale. In a multi-process run
+(``parallel/distributed.py``) each process takes its block of the rows
+and every process gathers every block's results.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import json
 import logging
@@ -27,6 +40,7 @@ import os
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -54,6 +68,12 @@ from conzic_torch.models.convert import (
     from_jax_params,
     load_bert,
     load_clip,
+)
+from conzic_torch.parallel import distributed
+from conzic_torch.parallel.mesh import (
+    pad_batch_to_mesh,
+    replicate,
+    shard_batch,
 )
 from conzic_torch.runtime.image import preprocess_batch_pil
 from conzic_torch.text.bpe import CLIPBPETokenizer
@@ -93,6 +113,52 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return device
 
 
+def _indexed(device: torch.device) -> torch.device:
+    """``cuda`` as the ``cuda:i`` it means now, so that equal devices
+    compare equal."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _on(device: torch.device):
+    """The context that makes ``device`` current for this thread."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+# the results' batch axis: iterations lead the per-iteration arrays
+_BATCH_AXIS = {"iter_ids": 1, "iter_cos": 1, "iter_ctl": 1, "best_ids": 0,
+               "best_cos": 0}
+
+
+def tower_quants(quant: str) -> tuple:
+    """The config's ``quant`` tier as (bert_quant, clip_quant), each
+    "none" or "int8": "int8" quantizes the CLIP text tower (the candidate
+    scoring) only, "int8_all" the BERT encoder too. An unknown tier
+    raises: a caller that sets ``cfg.quant`` after validation must not
+    run the full-precision towers under a quantized label."""
+    if quant not in ("none", "int8", "int8_all"):
+        raise ValueError(f"unknown quant tier {quant!r} "
+                         "(expected none | int8 | int8_all)")
+    bert_q = "int8" if quant == "int8_all" else "none"
+    clip_q = "int8" if quant in ("int8", "int8_all") else "none"
+    return bert_q, clip_q
+
+
+def build_towers(bert_config: BertConfig, clip_config: CLIPConfig,
+                 config: ConzicConfig):
+    """Both towers, empty, in the config's compute type, attention route
+    and quant tier."""
+    dtype = _DTYPES[config.dtype]
+    bert_q, clip_q = tower_quants(config.quant)
+    return (BertForMaskedLM(bert_config, dtype=dtype,
+                            attn_impl=config.attn_impl, quant=bert_q),
+            CLIPModel(clip_config, dtype=dtype, attn_impl=config.attn_impl,
+                      quant=clip_q))
+
+
 def random_init_(modules: List[nn.Module], seed: int,
                  device: torch.device) -> None:
     """Fill parameters by name, as the reference package's random init
@@ -129,9 +195,14 @@ class Captioner:
     def __init__(self, bert_model: BertForMaskedLM, clip_model: CLIPModel,
                  wp: WordPieceTokenizer, bpe: CLIPBPETokenizer,
                  config: Optional[ConzicConfig] = None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", mesh=None):
+        """``mesh``: a data mesh (``parallel.mesh.make_mesh``, a list of
+        devices); the captioner's own device is then the mesh's first."""
         self.cfg = config or ConzicConfig()
         self.cfg.validate()
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh[0]
         self.device = resolve_device(device)
         self.wp, self.bpe = wp, bpe
         stop_words = (load_stop_words_file(self.cfg.stop_words_path)
@@ -169,6 +240,31 @@ class Captioner:
                     if (p.dtype == torch.float32
                             and not name.endswith("logit_scale")):
                         p.data = p.data.to(torch.bfloat16)
+        self._replicas = self._make_replicas()
+
+    @property
+    def spread(self) -> bool:
+        """True when a run is split over a mesh or over processes."""
+        return self.mesh is not None or distributed.process_count() > 1
+
+    @property
+    def _devices(self) -> List[torch.device]:
+        """The devices a run's row blocks go to: the mesh's, or the
+        captioner's own."""
+        return [_indexed(resolve_device(d))
+                for d in (self.mesh or [self.device])]
+
+    def _make_replicas(self) -> Dict[torch.device, tuple]:
+        """(bert, clip) per device of the mesh: the captioner's own towers
+        on its own device, a copy on any other (equal devices share
+        one)."""
+        replicas = {_indexed(self.device): (self.bert_model,
+                                            self.clip_model)}
+        for d in self._devices:
+            if d not in replicas:
+                replicas[d] = (copy.deepcopy(self.bert_model).to(d),
+                               copy.deepcopy(self.clip_model).to(d))
+        return replicas
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -186,11 +282,14 @@ class Captioner:
                     clip_config: Optional[CLIPConfig] = None, seed: int = 0,
                     wp_vocab: Optional[dict] = None,
                     clip_text_vocab_size: Optional[int] = None,
-                    device: Union[str, torch.device] = "cuda") -> "Captioner":
+                    device: Union[str, torch.device] = "cuda",
+                    mesh=None) -> "Captioner":
         """Seeded random towers over synthetic vocabularies: tiny by
         default, full width when given ``BertConfig()`` / ``CLIPConfig()``
         and the full-size vocabulary."""
         config = config or ConzicConfig()
+        if mesh is not None:
+            device = mesh[0]
         device = resolve_device(device)
         wp, bpe = cls._tokenizers(wp_vocab)
         bert_config = dataclasses.replace(
@@ -203,38 +302,31 @@ class Captioner:
             clip_config, text=dataclasses.replace(
                 clip_config.text, vocab_size=text_vocab,
                 eos_token_id=bpe.eos_token_id))
-        dtype = _DTYPES[config.dtype]
         with torch.device(device):
-            bert = BertForMaskedLM(bert_config, dtype=dtype,
-                                   attn_impl=config.attn_impl)
-            clip = CLIPModel(clip_config, dtype=dtype,
-                             attn_impl=config.attn_impl)
+            bert, clip = build_towers(bert_config, clip_config, config)
         random_init_([bert, clip], seed, device)
-        return cls(bert, clip, wp, bpe, config, device)
+        return cls(bert, clip, wp, bpe, config, device, mesh)
 
     @classmethod
     def from_jax_params(cls, bert_config: BertConfig, bert_params,
                         clip_config: CLIPConfig, clip_params,
                         wp: WordPieceTokenizer, bpe: CLIPBPETokenizer,
                         config: Optional[ConzicConfig] = None,
-                        device: Union[str, torch.device] = "cuda"
+                        device: Union[str, torch.device] = "cuda", mesh=None
                         ) -> "Captioner":
         """Towers carrying a ``conzic_tpu`` parameter tree (numpy leaves,
         models/convert.py layout)."""
         config = config or ConzicConfig()
-        device = resolve_device(device)
-        dtype = _DTYPES[config.dtype]
-        bert = from_jax_params(
-            BertForMaskedLM(bert_config, dtype=dtype,
-                            attn_impl=config.attn_impl), bert_params)
-        clip = from_jax_params(
-            CLIPModel(clip_config, dtype=dtype, attn_impl=config.attn_impl),
-            clip_params)
-        return cls(bert, clip, wp, bpe, config, device)
+        if mesh is None:
+            resolve_device(device)
+        bert, clip = build_towers(bert_config, clip_config, config)
+        bert = from_jax_params(bert, bert_params)
+        clip = from_jax_params(clip, clip_params)
+        return cls(bert, clip, wp, bpe, config, device, mesh)
 
     @classmethod
     def from_pretrained(cls, config: ConzicConfig,
-                        device: Union[str, torch.device] = "cuda"
+                        device: Union[str, torch.device] = "cuda", mesh=None
                         ) -> "Captioner":
         """Towers and tokenizers from the local checkpoint directories
         ``config.lm_model`` (HF BERT or RoBERTa masked LM) and
@@ -252,27 +344,24 @@ class Captioner:
                     f"match_model={config.match_model!r} names a "
                     f"different directory — pass the same path for both "
                     f"(or leave match_model at its default).")
-            return cls.from_tiny_dir(config, config.lm_model, device)
-        device = resolve_device(device)
-        dtype = _DTYPES[config.dtype]
+            return cls.from_tiny_dir(config, config.lm_model, device, mesh)
+        if mesh is None:
+            resolve_device(device)
         bert_config, bert_sd = load_bert(config.lm_model)
         clip_config, clip_sd = load_clip(config.match_model)
-        bert = from_hf_state_dict(
-            BertForMaskedLM(bert_config, dtype=dtype,
-                            attn_impl=config.attn_impl), bert_sd)
-        clip = from_hf_state_dict(
-            CLIPModel(clip_config, dtype=dtype, attn_impl=config.attn_impl),
-            clip_sd)
+        bert, clip = build_towers(bert_config, clip_config, config)
+        bert = from_hf_state_dict(bert, bert_sd)
+        clip = from_hf_state_dict(clip, clip_sd)
         if load_hf_config(config.lm_model).get("model_type") == "roberta":
             wp = RobertaBPETokenizer.from_pretrained(config.lm_model)
         else:
             wp = WordPieceTokenizer.from_pretrained(config.lm_model)
         bpe = CLIPBPETokenizer.from_pretrained(config.match_model)
-        return cls(bert, clip, wp, bpe, config, device)
+        return cls(bert, clip, wp, bpe, config, device, mesh)
 
     @classmethod
     def from_tiny_dir(cls, config: Optional[ConzicConfig], path: str,
-                      device: Union[str, torch.device] = "cuda"
+                      device: Union[str, torch.device] = "cuda", mesh=None
                       ) -> "Captioner":
         """A checkpoint directory of the JAX package's
         ``models/checkpoint.py`` (``conzic_tiny.json``, both towers' flax
@@ -285,13 +374,18 @@ class Captioner:
             os.path.join(path, "bpe_vocab.json"),
             os.path.join(path, "bpe_merges.txt"))
         return cls.from_jax_params(bert_config, bert_params, clip_config,
-                                   clip_params, wp, bpe, config, device)
+                                   clip_params, wp, bpe, config, device, mesh)
 
     # ------------------------------------------------------------------
-    def encode_images(self, pixels) -> torch.Tensor:
+    def encode_images(self, pixels, local: bool = False) -> torch.Tensor:
         """A list of PIL images, or preprocessed NHWC pixels (B, H, W, C) or
         (H, W, C) -> (B, D) image embeddings on the device. The image tower
-        runs once per generation."""
+        runs once per generation.
+
+        ``local``: in a multi-process run, ``pixels`` are this process's
+        ``distributed.local_slice`` of a global batch; each process
+        encodes its block and the global (B_global, D) embeddings come
+        back on every process. In one process it changes nothing."""
         if isinstance(pixels, (list, tuple)):
             pixels = preprocess_batch_pil(
                 pixels, self.clip_model.config.vision.image_size)
@@ -300,7 +394,11 @@ class Captioner:
         if pixels.dim() == 3:
             pixels = pixels[None]
         with torch.inference_mode():
-            return self.clip_model.encode_image(pixels.to(self.device))
+            emb = self.clip_model.encode_image(pixels.to(self.device))
+        if local and distributed.process_count() > 1:
+            global_b = emb.shape[0] * distributed.process_count()
+            return distributed.put_local_shard(emb, global_b, self.device)
+        return emb
 
     def init_ids(self, prompt: str, max_len: int,
                  batch_size: int) -> np.ndarray:
@@ -571,11 +669,19 @@ class Captioner:
 
     def _clip_window(self) -> int:
         """``clip_window`` rounded up to a multiple of 8; 0 when that is not
-        narrower than the rows' static width. The reference refuses a
-        window on a mesh; the port runs on one card."""
+        narrower than the rows' static width. Refused on a mesh or over
+        processes, as the reference refuses it."""
         w = self.cfg.clip_window
         if not w:
             return 0
+        if self.spread:
+            raise ValueError(
+                "--clip_window requires a single chip (no "
+                "--mesh_data_axis): the per-step fit check is a "
+                "cross-shard reduction on the batch-sharded candidate "
+                "rows, which would insert a collective into the "
+                "engine's zero-collective data-parallel program. Drop "
+                "the window or the mesh.")
         w = (w + 7) // 8 * 8
         return w if w < (self._clip_pad_to() or self.cfg.clip_len) else 0
 
@@ -686,6 +792,11 @@ class Captioner:
             prune_k=prune_k, final_exact=prune_final_exact)
         dev = self.device
         tables, host = self.tables, HostCalls()
+        if self.spread and (spec.exact_bridge or (
+                ctl is not None and spec.ctl_mode == "exact")):
+            raise NotImplementedError(
+                "bridge_mode='exact' / ctl_mode='exact' on a mesh: the exact "
+                "modes' host calls run in the Gibbs loop of one device")
         if spec.exact_bridge:
             host = host._replace(bridge=self._get_host_bridge(spec.clip_len))
         if ctl is not None and spec.ctl_mode == "exact":
@@ -726,23 +837,63 @@ class Captioner:
         hyper = {"alpha": alpha, "beta": beta, "gamma": gamma,
                  "temperature": temperature}
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            gen = run_generation(
-                spec, self.bert_model, self.clip_model, tables, hyper,
-                image_embeds, torch.from_numpy(init).long().to(dev),
-                positions, span_sizes, host)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        elapsed = time.perf_counter() - t0
-        return self._package_result(gen, elapsed)
+        out = self._generate(spec, tables, hyper, image_embeds, init,
+                             positions, span_sizes, host)
+        return self._package_result(out, time.perf_counter() - t0)
 
-    def _package_result(self, gen, elapsed: float) -> GenerationResult:
+    def _generate(self, spec: EngineSpec, tables, hyper, image_embeds,
+                  init: np.ndarray, positions, span_sizes,
+                  host: HostCalls) -> Dict[str, np.ndarray]:
+        """``run_generation`` over the run's B rows -> its outputs on the
+        host. Without a mesh and in one process: one call on the device.
+        Else the rows, padded with copies of the last to a multiple of the
+        data devices of every process, go in contiguous blocks to the data
+        devices (this process's share of them), one thread a block, and
+        every process gathers every block's outputs; the padding is cut
+        off."""
+        devices = self._devices
+        procs = distributed.process_count()
+        # every input's rows on its leading axis; positions are (I, steps, B)
+        by_pos = isinstance(positions, torch.Tensor)
+        batch = [image_embeds, torch.from_numpy(init).long()]
+        if by_pos:
+            batch.append(positions.movedim(2, 0))
+        batch, B = pad_batch_to_mesh(batch, self.mesh, procs)
+        mine = distributed.local_slice(batch[0].shape[0])
+        embeds, ids, *pos = [shard_batch(devices, x[mine]) for x in batch]
+        tabs = {k: replicate(devices, v) for k, v in tables.items()}
+
+        def block(j: int) -> Dict[str, np.ndarray]:
+            d = devices[j]
+            bert, clip = self._replicas[d]
+            with torch.inference_mode(), _on(d):
+                gen = run_generation(
+                    spec, bert, clip, {k: v[j] for k, v in tabs.items()},
+                    hyper, embeds[j], ids[j],
+                    pos[0][j].movedim(0, 2) if by_pos else positions,
+                    span_sizes, host)
+                return {k: getattr(gen, k).cpu().numpy() for k in _BATCH_AXIS}
+
+        if len(devices) == 1:
+            outs = [block(0)]
+        else:
+            with ThreadPoolExecutor(len(devices)) as pool:
+                outs = list(pool.map(block, range(len(devices))))
+        out = {k: np.concatenate([o[k] for o in outs], axis=ax)
+               for k, ax in _BATCH_AXIS.items()}
+        if procs > 1:
+            out = {k: distributed.gather_to_host(v, _BATCH_AXIS[k])
+                   for k, v in out.items()}
+        return {k: (v[:, :B] if _BATCH_AXIS[k] == 1 else v[:B])
+                for k, v in out.items()}
+
+    def _package_result(self, out: Dict[str, np.ndarray],
+                        elapsed: float) -> GenerationResult:
         """Decode snapshots into the reference-contract result."""
-        iter_ids = gen.iter_ids.cpu().numpy().astype(np.int32)
-        iter_cos = gen.iter_cos.cpu().numpy()
-        iter_ctl = gen.iter_ctl.cpu().numpy()
-        best_ids = gen.best_ids.cpu().numpy().astype(np.int32)
-        best_cos = gen.best_cos.cpu().numpy()
+        iter_ids = out["iter_ids"].astype(np.int32)
+        best_ids = out["best_ids"].astype(np.int32)
+        iter_cos, iter_ctl = out["iter_cos"], out["iter_ctl"]
+        best_cos = out["best_cos"]
         gen_texts_list = [self.wp.batch_decode(ids, skip_special_tokens=True)
                           for ids in iter_ids]
         clip_score_sequence = [[float(c) for c in cos] for cos in iter_cos]

@@ -125,7 +125,7 @@ def attention_block(x: torch.Tensor, residual: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(lib, code, what)
-    attention_block.launches += 1
+    build.count_launch(attention_block)
     return out
 
 

@@ -97,7 +97,7 @@ def attention_with_out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(lib, code, what)
-    attention_with_out.launches += 1
+    build.count_launch(attention_with_out)
     return out
 
 

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Tuple
@@ -32,6 +33,15 @@ NVCC_FLAGS: Tuple[str, ...] = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the count of the kernel's launches
+    that ``chip_smoke.py`` reads. Under a lock: a mesh runs its replicas on
+    threads of one process."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def _nvcc() -> str:

@@ -87,7 +87,7 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(lib, code, "layer_norm")
-    layer_norm.launches += 1
+    build.count_launch(layer_norm)
     return out
 
 

@@ -202,7 +202,7 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(lib, code, "masked_attention")
-    masked_attention.launches += 1
+    build.count_launch(masked_attention)
     return out
 
 

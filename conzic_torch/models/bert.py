@@ -78,9 +78,11 @@ class BertMlmHead(nn.Module):
 class BertForMaskedLM(nn.Module):
     def __init__(self, config: BertConfig,
                  dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "pallas"):
+                 attn_impl: str = "pallas", quant: str = "none"):
+        """``quant="int8"``: the encoder's projections and MLPs in int8 (the
+        ``int8_all`` tier); the MLM head stays in the compute type."""
         super().__init__()
-        self.config, self.dtype = config, dtype
+        self.config, self.dtype, self.quant = config, dtype, quant
         self.embeddings = BertEmbeddings(config, dtype)
         self.encoder = TransformerStack(
             num_layers=config.num_layers,
@@ -92,6 +94,7 @@ class BertForMaskedLM(nn.Module):
             pre_ln=False,
             dtype=dtype,
             attn_impl=attn_impl,
+            quant=quant,
         )
         self.mlm = BertMlmHead(config, dtype)
 

@@ -25,7 +25,8 @@ from conzic_torch.models.layers import LayerNorm, Linear, TransformerStack
 from conzic_torch.ops.attention import make_attn_mask
 
 
-def _stack(cfg, dtype: torch.dtype, attn_impl: str) -> TransformerStack:
+def _stack(cfg, dtype: torch.dtype, attn_impl: str,
+           quant: str = "none") -> TransformerStack:
     return TransformerStack(
         num_layers=cfg.num_layers,
         num_heads=cfg.num_heads,
@@ -36,22 +37,24 @@ def _stack(cfg, dtype: torch.dtype, attn_impl: str) -> TransformerStack:
         pre_ln=True,
         dtype=dtype,
         attn_impl=attn_impl,
+        quant=quant,
     )
 
 
 class CLIPTextTower(nn.Module):
-    """Pre-LN causal transformer over BPE ids; pooled at the first EOS."""
+    """Pre-LN causal transformer over BPE ids; pooled at the first EOS.
+    ``quant="int8"``: its projections and MLPs in int8."""
 
     def __init__(self, config: CLIPTextConfig,
                  dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "pallas"):
+                 attn_impl: str = "pallas", quant: str = "none"):
         super().__init__()
-        self.config, self.dtype = config, dtype
+        self.config, self.dtype, self.quant = config, dtype, quant
         E = config.hidden_size
         self.token_embedding = nn.Parameter(torch.empty(config.vocab_size, E))
         self.position_embedding = nn.Parameter(
             torch.empty(config.max_position_embeddings, E))
-        self.encoder = _stack(config, dtype, attn_impl)
+        self.encoder = _stack(config, dtype, attn_impl, quant)
         self.final_ln = LayerNorm(E, config.layer_norm_eps)
 
     def forward(self, input_ids: torch.Tensor,
@@ -150,14 +153,15 @@ class CLIPVisionTower(nn.Module):
 
 class CLIPModel(nn.Module):
     """Dual tower + projections + ``logit_scale`` (kept in its stored type,
-    exponentiated there as the flax model does)."""
+    exponentiated there as the flax model does). ``quant`` applies to the
+    text tower only (the candidate scoring), as in the reference."""
 
     def __init__(self, config: CLIPConfig,
                  dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "pallas"):
+                 attn_impl: str = "pallas", quant: str = "none"):
         super().__init__()
-        self.config, self.dtype = config, dtype
-        self.text_model = CLIPTextTower(config.text, dtype, attn_impl)
+        self.config, self.dtype, self.quant = config, dtype, quant
+        self.text_model = CLIPTextTower(config.text, dtype, attn_impl, quant)
         self.vision_model = CLIPVisionTower(config.vision, dtype, attn_impl)
         self.text_projection = Linear(config.text.hidden_size,
                                       config.projection_dim, bias=False,

@@ -5,7 +5,11 @@ gelu) and both CLIP towers (pre-LayerNorm, quick gelu) share one residual
 block. Parameters keep the type they were stored in and are cast to the
 module's compute ``dtype`` on use, as the flax modules do; every LayerNorm
 goes through the LayerNorm kernel and every attention through one of the
-three attention kernels, chosen by ``attn_impl``.
+three attention kernels, chosen by ``attn_impl``, or through the
+reference's own XLA formulations (``"xla"``, ``"xla_bhsd"``,
+``"twoblock"``: plain PyTorch products, the library route). Under
+``quant="int8"`` the projections and MLPs of a block multiply in int8
+(``ops/quant.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +27,18 @@ from conzic_torch.kernels.masked_attention import (
     masked_attention,
     with_prefix,
 )
-from conzic_torch.ops.attention import AttnMask
+from conzic_torch.ops.attention import (
+    XLA_IMPLS,
+    AttnMask,
+    additive_bias,
+    dot_product_attention,
+    two_block_prefix_attention,
+)
+from conzic_torch.ops.quant import (
+    QuantizedWeight,
+    int8_linear,
+    quantize_weight,
+)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -38,16 +53,35 @@ ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 
 
 class Linear(nn.Module):
-    """``y = x W^T + b`` with the weight cast to the compute type on use."""
+    """``y = x W^T + b`` with the weight cast to the compute type on use.
+
+    ``quant="int8"``: the int8 product of ``ops/quant.py``, its fp32 result
+    plus the fp32 bias, then cast to the compute type, as the reference's
+    ``(int8_matmul(x, w) + b).astype(dtype)``. The stored parameter is
+    quantized once and kept until it changes (another storage or an
+    in-place write)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant: str = "none"):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.quant = dtype, quant
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+        self._quantized: Optional[Tuple[tuple, QuantizedWeight]] = None
+
+    def quantized_weight(self) -> QuantizedWeight:
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.device, w.dtype)
+        if self._quantized is None or self._quantized[0] != key:
+            self._quantized = (key, quantize_weight(w))
+        return self._quantized[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant == "int8":
+            y = int8_linear(x, self.quantized_weight())
+            if self.bias is not None:
+                y = y + self.bias.float()
+            return y.to(self.dtype)
         b = self.bias.to(self.dtype) if self.bias is not None else None
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
@@ -71,29 +105,34 @@ class MultiHeadAttention(nn.Module):
     K/V (B, P, H, D) shared by the N = B*G rows of ``x``, put before each
     row's own keys: the masked-attention kernel reads it at image width
     (its prefix form); it is broadcast and concatenated only for the
-    attention-with-output kernel and for ``return_kv``. ``x_kv``:
-    keys/values come from it while queries come from ``x`` (the pooled
-    final layer).
+    attention-with-output kernel, the XLA routes and ``return_kv``.
+    ``x_kv``: keys/values come from it while queries come from ``x`` (the
+    pooled final layer).
 
-    ``attn_impl`` picks the kernel, by the reference's conditions:
+    ``attn_impl`` picks the route, by the reference's conditions:
     ``"pallas_block"`` runs a pass that has a residual and neither prefix
-    K/V, returned K/V nor ``x_kv`` as one attention-block kernel;
+    K/V, returned K/V nor ``x_kv`` as one attention-block kernel (on the
+    unquantized weights, under int8 too, as the reference's block kernel);
     ``"pallas_out"`` runs a suffix-over-prefix pass with key lengths as one
-    attention-with-output-projection kernel; every other pass, and every
-    pass under ``"pallas"``, projects with ``Linear`` and goes through the
-    masked-attention kernel. All three read the same four ``Linear``s."""
+    attention-with-output-projection kernel, unless the tower is quantized;
+    every other pass under the three ``pallas*`` routes projects with
+    ``Linear`` and goes through the masked-attention kernel. ``"xla"`` and
+    ``"xla_bhsd"`` run the reference's einsum attention with its additive
+    bias; ``"twoblock"`` its two-block prefix form where a pass has prefix
+    K/V, no ``x_kv``, no returned K/V and no quantization, and the einsum
+    form elsewhere. All read the same four ``Linear``s."""
 
     def __init__(self, num_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "pallas"):
+                 attn_impl: str = "pallas", quant: str = "none"):
         super().__init__()
         E = num_heads * head_dim
         self.num_heads, self.head_dim = num_heads, head_dim
-        self.dtype, self.attn_impl = dtype, attn_impl
-        self.query = Linear(E, E, dtype=dtype)
-        self.key = Linear(E, E, dtype=dtype)
-        self.value = Linear(E, E, dtype=dtype)
-        self.out = Linear(E, E, dtype=dtype)
+        self.dtype, self.attn_impl, self.quant = dtype, attn_impl, quant
+        self.query = Linear(E, E, dtype=dtype, quant=quant)
+        self.key = Linear(E, E, dtype=dtype, quant=quant)
+        self.value = Linear(E, E, dtype=dtype, quant=quant)
+        self.out = Linear(E, E, dtype=dtype, quant=quant)
 
     def forward(self, x: torch.Tensor, mask: AttnMask,
                 residual: Optional[torch.Tensor] = None,
@@ -101,8 +140,9 @@ class MultiHeadAttention(nn.Module):
                 return_kv: bool = False,
                 x_kv: Optional[torch.Tensor] = None):
         H, D = self.num_heads, self.head_dim
-        dt = self.dtype
-        if (self.attn_impl == "pallas_block" and residual is not None
+        dt, impl = self.dtype, self.attn_impl
+        quantized = self.quant != "none"
+        if (impl == "pallas_block" and residual is not None
                 and prefix_kv is None and not return_kv and x_kv is None):
             # the block kernel derives K/V from its single input, so the
             # pooled final layer (x_kv) cannot take it
@@ -117,12 +157,15 @@ class MultiHeadAttention(nn.Module):
         q = self.query(x).view(N, Sq, H, D)
         k = self.key(kv_src).view(N, kv_src.shape[1], H, D)
         v = self.value(kv_src).view(N, kv_src.shape[1], H, D)
-        with_out = (self.attn_impl == "pallas_out" and prefix_kv is not None
+        with_out = (impl == "pallas_out" and prefix_kv is not None
                     and mask.lens is not None and x_kv is None
-                    and not return_kv)
+                    and not return_kv and not quantized)
+        two_block = (impl == "twoblock" and prefix_kv is not None
+                     and x_kv is None and not return_kv and not quantized)
+        xla = impl in XLA_IMPLS
         if prefix_kv is not None:
             prefix_kv = tuple(t.to(dt).contiguous() for t in prefix_kv)
-            if with_out or return_kv:
+            if with_out or return_kv or (xla and not two_block):
                 k, v = with_prefix(k, v, prefix_kv)
                 prefix_kv = None
         if with_out:
@@ -133,8 +176,18 @@ class MultiHeadAttention(nn.Module):
                 self.out.weight.to(q.dtype), self.out.bias, mask.lens,
                 mask.causal)
             return y if residual is None else y + residual
-        out = masked_attention(q, k.contiguous(), v.contiguous(), mask.lens,
-                               mask.causal, prefix_kv)
+        if two_block:
+            Sk = prefix_kv[0].shape[1] + k.shape[1]
+            out = two_block_prefix_attention(
+                q, k, v, *prefix_kv,
+                additive_bias(mask, N, Sq, Sk, q.device))
+        elif xla:
+            out = dot_product_attention(
+                q, k, v, additive_bias(mask, N, Sq, k.shape[1], q.device),
+                impl="xla_bhsd" if impl == "xla_bhsd" else "xla")
+        else:
+            out = masked_attention(q, k.contiguous(), v.contiguous(),
+                                   mask.lens, mask.causal, prefix_kv)
         out = self.out(out.reshape(N, Sq, H * D))
         if residual is not None:
             out = out + residual
@@ -145,11 +198,11 @@ class MultiHeadAttention(nn.Module):
 
 class Mlp(nn.Module):
     def __init__(self, hidden: int, intermediate: int, act: str,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant: str = "none"):
         super().__init__()
         self.act = ACTIVATIONS[act]
-        self.fc1 = Linear(hidden, intermediate, dtype=dtype)
-        self.fc2 = Linear(intermediate, hidden, dtype=dtype)
+        self.fc1 = Linear(hidden, intermediate, dtype=dtype, quant=quant)
+        self.fc2 = Linear(intermediate, hidden, dtype=dtype, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.act(self.fc1(x)))
@@ -185,13 +238,13 @@ class TransformerBlock(nn.Module):
     def __init__(self, num_heads: int, head_dim: int, intermediate: int,
                  act: str, eps: float, pre_ln: bool,
                  dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "pallas"):
+                 attn_impl: str = "pallas", quant: str = "none"):
         super().__init__()
         hidden = num_heads * head_dim
         self.pre_ln = pre_ln
         self.attention = MultiHeadAttention(num_heads, head_dim, dtype=dtype,
-                                            attn_impl=attn_impl)
-        self.mlp = Mlp(hidden, intermediate, act, dtype=dtype)
+                                            attn_impl=attn_impl, quant=quant)
+        self.mlp = Mlp(hidden, intermediate, act, dtype=dtype, quant=quant)
         self.ln1 = LayerNorm(hidden, eps)
         self.ln2 = LayerNorm(hidden, eps)
 
@@ -238,11 +291,12 @@ class TransformerStack(nn.Module):
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  intermediate: int, act: str, eps: float, pre_ln: bool,
                  dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "pallas"):
+                 attn_impl: str = "pallas", quant: str = "none"):
         super().__init__()
         self.layers = nn.ModuleList([
             TransformerBlock(num_heads, head_dim, intermediate, act, eps,
-                             pre_ln, dtype=dtype, attn_impl=attn_impl)
+                             pre_ln, dtype=dtype, attn_impl=attn_impl,
+                             quant=quant)
             for _ in range(num_layers)
         ])
 

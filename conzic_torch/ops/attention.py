@@ -1,11 +1,20 @@
-"""Attention masking in the form the port's kernel takes.
+"""Attention masking, and the reference's XLA attention formulations.
 
-Counterpart of ``conzic_tpu/ops/attention.py``. Every attention of the port
-goes through the masked-attention kernel, so a mask is only ever the
-kernel's (``lens``, ``causal``) pair: key padding by valid key lengths and a
+Counterpart of ``conzic_tpu/ops/attention.py``. A mask is the kernels'
+(``lens``, ``causal``) pair: key padding by valid key lengths and a
 (rectangular) causal rule. :func:`attention_keep_mask` expands it to the
 boolean (N, 1, Sq, Sk) mask that the plain version of the kernel and the
-library yardstick apply.
+library yardstick apply; :func:`additive_bias` to the reference's additive
+fp32 bias.
+
+The ``attn_impl`` routes ``"xla"``, ``"xla_bhsd"`` and ``"twoblock"`` are
+the reference's own formulations, which XLA compiles outside any Pallas
+call: :func:`dot_product_attention` (einsums, fp32 logits, an additive
+bias, softmax, the weights cast to the compute type before the value
+product) and :func:`two_block_prefix_attention`. They run here as plain
+PyTorch products, the library route on the card: no hand-written kernel
+stands behind them, and they are not the kernels' plain versions (those
+replace masked logits; these add the bias, as the reference does).
 """
 
 from __future__ import annotations
@@ -15,7 +24,9 @@ from typing import Optional
 
 import torch
 
-NEG_INF = -1e9  # the value masked logits are replaced by
+NEG_INF = -1e9  # masked logits: replaced by it (kernels), or offset (XLA)
+# the routes that run the reference's XLA formulations
+XLA_IMPLS = ("xla", "xla_bhsd", "twoblock")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,3 +58,94 @@ def attention_keep_mask(lens: Optional[torch.Tensor], N: int, Sq: int,
         row = torch.arange(Sq, device=device)
         keep = keep & (col[None, :] <= row[:, None] + (Sk - Sq))
     return keep
+
+
+def additive_bias(mask: AttnMask, N: int, Sq: int, Sk: int,
+                  device: torch.device) -> Optional[torch.Tensor]:
+    """The reference's additive fp32 bias (``make_attention_bias``, at full
+    key width under a prefix): -1e9 at keys ``col >= lens[n]``, plus -1e9
+    at ``col > row + (Sk - Sq)`` when causal (a key masked twice gets
+    -2e9, as there). (N or 1, 1, Sq, Sk), or None without masking.
+
+    The reference's pooled final layer gathers rows of that bias; the
+    port folds a pooled causal row into its key length
+    (``models/layers.py`` ``_pooled_mask``), which masks the same keys
+    by -1e9 once. A masked key's weight underflows to exactly 0 either
+    way, so the softmax is the same."""
+    col = torch.arange(Sk, device=device)
+    bias = None
+    if mask.lens is not None:
+        keep = (col[None, :] < mask.lens[:, None].to(device)).float()
+        bias = ((1.0 - keep) * NEG_INF)[:, None, None, :]
+    if mask.causal:
+        row = torch.arange(Sq, device=device)
+        causal = torch.where(col[None, :] <= row[:, None] + (Sk - Sq),
+                             0.0, NEG_INF).float()[None, None]
+        bias = causal if bias is None else bias + causal
+    return bias
+
+
+def _softmax(logits: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis: exp(x - max) divided by its
+    sum (not multiplied by the sum's reciprocal)."""
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    return p / p.sum(-1, keepdim=True)
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          impl: str = "xla") -> torch.Tensor:
+    """The reference's einsum attention. q, k, v (N, S, H, D); ``bias``
+    additive fp32, broadcastable to (N, H, Sq, Sk). fp32 logits (products
+    of the compute-type values, summed in fp32) scaled by D^-0.5 plus the
+    bias, softmax, the weights cast to q's type, then the value product in
+    that type. ``impl="xla_bhsd"`` computes the same in the (N, H, S, D)
+    layout. Returns (N, Sq, H, D) in q's type."""
+    dtype = q.dtype
+    scale = q.shape[-1] ** -0.5
+    if impl == "xla_bhsd":
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        logits = torch.matmul(qt.float(), kt.float().transpose(-1, -2))
+        logits = logits * scale
+        if bias is not None:
+            logits = logits + bias
+        weights = _softmax(logits).to(dtype)
+        return torch.matmul(weights, vt).transpose(1, 2).to(dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias
+    weights = _softmax(logits).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v).to(dtype)
+
+
+def two_block_prefix_attention(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, pk: torch.Tensor,
+                               pv: torch.Tensor,
+                               bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The reference's shared-prefix attention without the broadcast and
+    concatenated K/V: the prefix logits at image width, the suffix logits
+    per row, one softmax over both, the value product split the same way
+    and its two fp32 halves added. q, k, v (N = B*G, S, H, D); pk, pv (B,
+    P, H, D); ``bias`` additive at full key width (prefix keys first)."""
+    N, S, H, D = q.shape
+    B, P = pk.shape[0], pk.shape[1]
+    G = N // B
+    scale = D ** -0.5
+    l_s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    qg = q.reshape(B, G * S, H, D)
+    l_p = torch.einsum("bqhd,bphd->bhqp", qg.float(),
+                       pk.to(q.dtype).float())
+    l_p = l_p.reshape(B, H, G, S, P).permute(0, 2, 1, 3, 4).reshape(
+        N, H, S, P)
+    logits = torch.cat([l_p, l_s], dim=-1) * scale
+    if bias is not None:
+        logits = logits + bias
+    w = _softmax(logits)
+    w_s = w[..., P:].to(q.dtype)
+    w_p = w[..., :P].to(q.dtype)
+    out_s = torch.einsum("bhqk,bkhd->bqhd", w_s.float(), v.float())
+    w_pg = w_p.reshape(B, G, H, S, P).permute(0, 2, 1, 3, 4).reshape(
+        B, H, G * S, P)
+    out_p = torch.einsum("bhqp,bphd->bqhd", w_pg.float(),
+                         pv.to(q.dtype).float())
+    return (out_s + out_p.reshape(N, S, H, D)).to(q.dtype)

@@ -56,10 +56,10 @@ def port_clip_config(cfg):
     )
 
 
-def port_captioner(jax_cap, bpe_dir=None, **cfg_kw):
+def port_captioner(jax_cap, bpe_dir=None, mesh=None, **cfg_kw):
     """The port's Captioner on the CPU with the weights and vocabularies of
     ``jax_cap``; ``bpe_dir`` holds the BPE files (the synthetic ones when
-    None)."""
+    None); ``mesh`` a mesh of CPU devices."""
     if bpe_dir is None:
         bpe = PortBPE.from_files(*port_bpe_files(tempfile.mkdtemp()))
     else:
@@ -71,7 +71,7 @@ def port_captioner(jax_cap, bpe_dir=None, **cfg_kw):
         port_clip_config(jax_cap.clip_model.config),
         np_tree(jax_cap.params["clip"]),
         PortWordPiece(dict(jax_cap.wp.vocab)), bpe,
-        PortConfig(**cfg_kw), device="cpu")
+        PortConfig(**cfg_kw), device="cpu", mesh=mesh)
 
 
 def carry_prune_tables(jax_cap, port_cap):

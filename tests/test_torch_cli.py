@@ -6,8 +6,7 @@ must write the reference package's log lines (all but the timing lines and
 the echo of the parsed flags) and its ``results/`` tree byte for byte, when
 ``conzic_tpu``'s CLIs run with the same flags. Also held: the batch runner's
 drop of a trailing partial batch and skip of an unreadable file, fused
-samples equal to looped ones, the refusal of unported flags, the runtime
-helpers (prefetch, timers, tracing, seeding, log names), the reference
+samples equal to looped ones, the runtime helpers (prefetch, timers, tracing, seeding, log names), the reference
 signatures of ``compat``, CLIPScore, and the ndiv and POS command lines on
 the written tree.
 """
@@ -154,24 +153,6 @@ def test_run_drops_the_partial_batch_and_skips_unreadable_files(
                                               "iter_0.json"]
     with open(sample_dir / "iter_0.json") as f:
         assert sorted(json.load(f)) == ["img_0", "img_1"]
-
-
-# the pruned tiers' flags run: the combinations the reference refuses are
-# in tests/test_torch_pruned.py
-@pytest.mark.parametrize("argv,message", [
-    (["--quant", "int8"], "quant"),
-    (["--mesh_data_axis", "2"], "mesh_data_axis"),
-    (["--attn_impl", "xla"], "attn_impl"),
-    (["--multihost"], "multi-host"),
-    (["--coordinator_address", "localhost:1234"], "multi-host"),
-])
-def test_unported_flags_end_with_a_message(argv, message, tmp_path,
-                                           monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit) as e:
-        run.main(TINY + argv + ["--caption_img_path", EXAMPLES])
-    assert message in str(e.value)
-    assert not (tmp_path / "results").exists()
 
 
 def test_cli_runs_on_the_card_unless_asked_for_the_cpu(tmp_path,

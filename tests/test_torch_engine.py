@@ -182,14 +182,6 @@ def test_generate_step_sampling_needs_a_generator(kw):
         generate_step(torch.from_numpy(_step_logits()), 0, **kw)
 
 
-@pytest.mark.parametrize("attn_impl", ["xla", "xla_bhsd", "twoblock"])
-def test_attn_impls_without_a_counterpart_raise(attn_impl):
-    with pytest.raises(NotImplementedError, match="attn_impl"):
-        ConzicConfig(attn_impl=attn_impl).validate()
-    with pytest.raises(ValueError, match="attn_impl"):
-        ConzicConfig(attn_impl=attn_impl + "?").validate()
-
-
 def test_pooled_final_layer_refuses_several_causal_rows():
     block = TransformerBlock(2, 4, 16, "quick_gelu", 1e-5, pre_ln=True)
     x = torch.zeros(2, 5, 8)
@@ -205,11 +197,9 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
         Captioner.from_random()
 
 
-# the pruned tiers' knobs are ported: their refusals are in
-# tests/test_torch_pruned.py
-@pytest.mark.parametrize("knob,value", [
-    ("quant", "int8"), ("scan_layers", True), ("mesh_data_axis", 2),
-])
+# the pruned tiers, the int8 tier and the mesh are ported: the pruned
+# refusals are in tests/test_torch_pruned.py
+@pytest.mark.parametrize("knob,value", [("scan_layers", True)])
 def test_unported_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
         ConzicConfig(**{knob: value}).validate()
