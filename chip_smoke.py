@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--iters 15] [--profile [ROUTE ...]]
     python3 chip_smoke.py --trees DIR [DIR ...] [--reps 3] [--kernels]
+    python3 chip_smoke.py --scale      (two or more cards)
 
 Phases, each printing its own lines:
 
@@ -29,10 +30,14 @@ Phases, each printing its own lines:
    ids; then the int8 tiers and the XLA attention routes (``ROUTE_CASES``:
    identical ids, no attention kernel launched under the XLA routes), a
    data mesh of two replicas on the one card (``[cuda:0, cuda:0]``, a
-   ragged batch; then two threads launching ``masked_attention`` at two
-   sizes, every launch succeeding), two processes sharing the card over ``gloo`` (each
-   ``chip_smoke.py --worker``), all with the CPU's ids, and ``make_mesh``
-   refusing more cards than the machine has;
+   ragged batch; then a 2 x 2 (data, model) mesh on the card, BERT's word
+   table and MLM bias cut in two, in ``MESH_2D_CASES``: sequential and
+   shuffle over 3 images x 2 samples, ``prune_k``, sentiment control and
+   ``int8_all`` over 3 images; then two threads launching
+   ``masked_attention`` at two sizes, every launch succeeding), two
+   processes sharing the card over ``gloo`` (each ``chip_smoke.py
+   --worker``), all with the CPU's ids, and ``make_mesh`` refusing more
+   cards than the machine has;
 4. main path: full-width ``bert-base-uncased`` + CLIP ViT-B/32 towers with
    random seeded bf16 weights caption B=32 seeded images with the settings
    of bench.py (k=200, sentence_len 10, clip_len 24, sequential order,
@@ -73,19 +78,27 @@ Phases, each printing its own lines:
    UI's defaults (latency), ``build_index`` over 2,048 synthetic captions
    (captions/s) and one search, and the main path on two replicas of one
    process on the card, one thread each (caps/s; the share of ids equal
-   to one process's, information).
+   to one process's, information); then, at 2 iterations
+   (``MESH_2D_ITERS``), the main path on one card, on that data mesh and
+   on a 2 x 2 (data, model) mesh of the card with V = 30,522 cut in two:
+   caps/s, launch counts equal to the data mesh's, the share of best ids
+   equal to one card's, and each shard's bytes.
 
 ``--scale`` (a machine of two or more cards) runs only the scale-out
 phase over every card: tiny fp32 ids equal to the CPU's on a data mesh
-of every card and in one process a card; then the main path at full
-width on one card and on the mesh (caps/s, launch counts, ids equal to
-one card's), and phase 6's command in one process and in ``api.run
---multihost``, one process a card (the same captions; caps/s).
+of every card, on an (n/2, 2) (data, model) mesh of the cards (an even
+number of them) and in one process a card; then the main path at full
+width on one card, on the data mesh and on the (n/2, 2) mesh (caps/s,
+launch counts, ids equal to one card's; each card's allocated memory and
+vocabulary bytes under both meshes), and phase 6's command in one process
+and in ``api.run --multihost``, one process a card (the same captions;
+caps/s).
 
 The last two lines are a JSON object with one entry per kernel (its
 ``launches`` are those of the main-path run under the ``attn_impl`` that the
 kernel carries; ``launches_by_attn_impl`` has every run's,
-``launches_pruned`` the pruned reads', ``launches_new_paths`` phase 7's)
+``launches_pruned`` the pruned reads', ``launches_new_paths`` phase 7's,
+``launches_mesh_2x2`` phase 8's 2 x 2 mesh's)
 and
 ``{"ok": true, "device": {...}}``. Without CUDA, or when a phase fails, the
 script exits non-zero without them. It imports nothing of JAX.
@@ -107,6 +120,7 @@ import argparse
 import base64
 import copy
 import dataclasses
+import gc
 import http.client
 import io
 import json
@@ -160,12 +174,14 @@ from conzic_torch.models.layers import Linear
 from conzic_torch.ops import quant
 from conzic_torch.ops.attention import XLA_IMPLS, attention_keep_mask
 from conzic_torch.parallel import distributed as dist_lib
-from conzic_torch.parallel.mesh import make_mesh
+from conzic_torch.parallel.mesh import make_mesh, make_mesh_2d
+from conzic_torch.parallel.vocab import VOCAB_PARAMS, VocabSplitBert
 from conzic_torch.runtime.image import preprocess_pil, preprocess_torch
 from conzic_torch.text.lexicons import UNIVERSAL_TAGS, _nltk_available
 from conzic_torch.text.vocab import (
     make_fullsize_wordpiece_vocab,
     make_test_bpe_files,
+    make_test_wordpiece_vocab,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -1859,6 +1875,8 @@ NEW_MAIN_PATHS = (("int8", "pallas", "int8"),
                   ("int8_all", "pallas", "int8_all"),
                   ("xla", "xla", "none"))
 INDEX_CAPTIONS = 2048
+# the full-width 2 x 2 mesh's iterations on the one card (time-bound)
+MESH_2D_ITERS = 2
 # the two-process runs: (images, prompt rows) of the tiny one
 TINY_PROCS = dict(images=4, max_len=5, top_k=16, iters=2)
 
@@ -1931,8 +1949,9 @@ def thread_launch_race(reps: int = 4000) -> None:
 def phase_mesh_agreement() -> None:
     """A data mesh of two replicas on the one card ([cuda:0, cuda:0], one
     thread each) captions a ragged batch (3 images x 2 samples, padded to
-    the mesh): ids equal to one CPU's. A mesh of more cards than the
-    machine has is refused."""
+    the mesh): ids equal to one CPU's; then a 2 x 2 (data, model) mesh
+    on the card, its vocabulary cut in two (``MESH_2D_CASES``). A mesh of
+    more cards than the machine has is refused."""
     cfg = ConzicConfig(dtype="float32")
     cpu = Captioner.from_random(config=cfg, seed=0, device="cpu")
     mesh = make_mesh(2, devices=["cuda:0", "cuda:0"])
@@ -1951,6 +1970,8 @@ def phase_mesh_agreement() -> None:
         if not same or cos_err > AGREE_COS_ATOL:
             raise AssertionError(f"the mesh run differs from the CPU's "
                                  f"({order})")
+    phase_mesh_2d_agreement(make_mesh_2d(2, 2, devices=["cuda:0"] * 4),
+                            "2 x 2 mesh on cuda:0")
     thread_launch_race()
     n = torch.cuda.device_count() + 1
     try:
@@ -1959,6 +1980,70 @@ def phase_mesh_agreement() -> None:
         say(f"mesh refusal: make_mesh({n}) on {n - 1} card(s): {e}")
     else:
         raise AssertionError(f"make_mesh({n}) was not refused")
+
+
+# the (data, model) mesh's tiny cases, the kinds of the reference's
+# multichip dry run: (label, quant tier, run arguments); 3 images, so one
+# sample a row is a ragged batch over two data rows
+MESH_2D_CASES = (
+    ("sequential, 2 samples", "none", dict(order="sequential", n_samples=2)),
+    ("shuffle, 2 samples", "none", dict(order="shuffle", n_samples=2)),
+    ("prune_k=4", "none", dict(order="sequential", prune_k=4)),
+    ("sentiment", "none", dict(order="sequential", ctl="sentiment",
+                               gamma=GAMMA)),
+    ("int8_all", "int8_all", dict(order="sequential")),
+)
+
+
+def even_vocab() -> dict:
+    """The synthetic word-piece vocabulary with a pad token when its size
+    is odd: the model axis of two must divide it to be cut."""
+    vocab = make_test_wordpiece_vocab()
+    if len(vocab) % 2:
+        vocab["zzpad"] = len(vocab)
+    return vocab
+
+
+def mesh_2d_pair(quant: str, mesh) -> tuple:
+    """A tiny fp32 captioner on the CPU over an even vocabulary, quantized
+    by ``quant``, and its copy on the (data, model) mesh ``mesh``; fails
+    unless the copy's vocabulary was cut."""
+    cfg = ConzicConfig(dtype="float32", quant=quant, verbose=False)
+    cpu = Captioner.from_random(config=cfg, seed=0, wp_vocab=even_vocab(),
+                                device="cpu")
+    gpu = Captioner(copy.deepcopy(cpu.bert_model),
+                    copy.deepcopy(cpu.clip_model), cpu.wp, cpu.bpe, cfg,
+                    mesh=mesh)
+    if not isinstance(gpu.bert_model, VocabSplitBert):
+        raise AssertionError("the vocabulary was not cut over the model "
+                             "axis")
+    return cpu, gpu
+
+
+def phase_mesh_2d_agreement(mesh, label: str) -> None:
+    """Every case of MESH_2D_CASES on ``mesh``, a (data, model) mesh (one
+    replica and one thread a data row, BERT's word table and MLM bias cut
+    over the row): caption ids and control scores equal to the CPU's."""
+    pairs = {}
+    for case, quant, kw in MESH_2D_CASES:
+        if quant not in pairs:
+            pairs[quant] = mesh_2d_pair(quant, mesh)
+        cpu, gpu = pairs[quant]
+        emb = cpu.encode_images(seeded_pixels(cpu, 3))
+        args = run_args(max_len=5, top_k=16, max_iter=2, **kw)
+        a = cpu.run(emb, rng=np.random.RandomState(7), **args)
+        if "prune_k" in kw:  # the card on the CPU's pruned-tier tables
+            gpu.adopt_prune_tables(cpu.tables, cpu.stage1_key,
+                                   cpu.stage1_calib_cos,
+                                   cpu.stage1_pc_calib_cos)
+        b = gpu.run(emb, rng=np.random.RandomState(7), **args)
+        same, same_ctl, cos_err = compare_runs(a, b)
+        say(f"agreement [{label}, {case}]: caption ids identical={same} "
+            f"iter_ctl equal={same_ctl} max cosine diff={cos_err:.3g} "
+            f"(tol {AGREE_COS_ATOL:g})")
+        if not (same and same_ctl) or cos_err > AGREE_COS_ATOL:
+            raise AssertionError(f"the {label} run differs from the CPU's "
+                                 f"({case})")
 
 
 def process_group(cmd_of: Callable[[int, int], List[str]], n: int,
@@ -2316,17 +2401,76 @@ def phase_mesh_main(iters: int, cap: Captioner, pixels, one: dict,
         f"ids equal one card's")
     if launches != want:
         raise AssertionError(f"mesh launch counts {launches} != {want}")
-    return dict(caps_s=B / res.elapsed_s, share=share)
+    return dict(caps_s=B / res.elapsed_s, share=share, launches=launches)
+
+
+def vocab_bytes(cap: Captioner) -> Dict[str, int]:
+    """Bytes of BERT's word table and MLM bias on each card, over every
+    replica of ``cap``."""
+    out: Dict[str, int] = {}
+    for bert, _ in cap._replicas.values():
+        if isinstance(bert, VocabSplitBert):
+            parts = [*bert.shards.words, *bert.shards.biases]
+        else:
+            parts = [bert.get_parameter(name) for name in VOCAB_PARAMS]
+        for t in parts:
+            out[str(t.device)] = out.get(str(t.device), 0) + t.nbytes
+    return out
+
+
+def phase_mesh_2d_main(iters: int, cap: Captioner, pixels) -> dict:
+    """The main path at full width (V = 30,522 cut in two) on a 2 x 2 mesh
+    of the one card, against one card and a data mesh of two replicas
+    there, all at ``iters`` iterations: caps/s, launch counts (equal to
+    the data mesh's), the share of best ids equal to one card's, and the
+    bytes of each shard of the word table and the MLM bias."""
+    cards = [DEVICE] * 4
+    one = phase_main(iters, cap, main_shape(cap), pixels,
+                     label=f"one card, {iters} iterations")
+    data = phase_mesh_main(iters, Captioner(
+        cap.bert_model, cap.clip_model, cap.wp, cap.bpe, cap.cfg,
+        mesh=make_mesh(2, devices=cards[:2])), pixels, one,
+        "data mesh of two replicas on cuda:0")
+    split = Captioner(cap.bert_model, cap.clip_model, cap.wp, cap.bpe,
+                      cap.cfg, mesh=make_mesh_2d(2, 2, devices=cards))
+    out = phase_mesh_main(iters, split, pixels, one, "2 x 2 mesh on cuda:0")
+    if out["launches"] != data["launches"]:
+        raise AssertionError(f"2 x 2 mesh launches {out['launches']} != "
+                             f"the data mesh's {data['launches']}")
+    bert = split.bert_model
+    V, E = bert.config.vocab_size, bert.config.hidden_size
+    whole = V * E * bert.shards.words[0].element_size()
+    shards = [(w.nbytes, b.nbytes, str(w.device))
+              for w, b in zip(bert.shards.words, bert.shards.biases)]
+    say(f"2 x 2 mesh [vocabulary]: V={V} E={E}, word table whole "
+        f"{whole} B ({whole / 1e6:.1f} MB); shards (word B, bias B, "
+        f"device) {shards}; card {card_line()}")
+    if any(w * 2 != whole for w, _, _ in shards):
+        raise AssertionError("a shard does not hold half the word table")
+    return dict(out, one_caps_s=MAIN["batch"] / one["result"].elapsed_s,
+                data_caps_s=data["caps_s"], shard_bytes=shards)
+
+
+def card_memory(n: int) -> List[int]:
+    """``torch.cuda.memory_allocated`` of each of the first ``n`` cards,
+    after a collection."""
+    gc.collect()
+    for i in range(n):
+        torch.cuda.synchronize(i)
+    return [torch.cuda.memory_allocated(i) for i in range(n)]
 
 
 def phase_scale(iters: int, cards: Optional[List[str]] = None) -> None:
     """``--scale``: scale-out over every card of the machine (two or
     more). Tiny fp32 towers on a data mesh of every card and in one
-    process a card: ids equal to the CPU's. Then the main path at full
-    width on one card and on the mesh (caps/s, launch counts, the share
-    of best ids equal to one card's), and the command line over phase 6's
-    scenes in one process and in ``api.run --multihost``, one process a
-    card (the same captions)."""
+    process a card, and on a (n/2, 2) mesh of the cards (``MESH_2D_CASES``,
+    BERT's vocabulary cut over each row's two cards): ids equal to the
+    CPU's. Then the main path at full width on one card, on the data mesh
+    and on the (n/2, 2) mesh (caps/s, launch counts, the share of best ids
+    equal to one card's; each card's allocated memory and vocabulary
+    bytes under both meshes), and the command line over phase 6's scenes
+    in one process and in ``api.run --multihost``, one process a card (the
+    same captions)."""
     cards = cards or [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     n = len(cards)
     if n < 2:
@@ -2350,9 +2494,14 @@ def phase_scale(iters: int, cards: Optional[List[str]] = None) -> None:
     same, _, cos_err = compare_runs(a, b)
     say(f"scale [{label}, tiny]: caption ids identical={same} to the "
         f"CPU's, max cosine diff {cos_err:.3g}; replicas on "
-        f"{[str(d) for d in gpu._replicas]}")
+        f"{[' '.join(map(str, row)) for row in gpu._replicas]}")
     if not same or cos_err > AGREE_COS_ATOL:
         raise AssertionError(f"{label}: the card differs from the CPU")
+    label_2d = mesh_2d = None
+    if n % 2 == 0:
+        label_2d = f"{n // 2} x 2 mesh of {n} cards"
+        mesh_2d = make_mesh_2d(n // 2, 2, cards)
+        phase_mesh_2d_agreement(mesh_2d, label_2d)
     phase_two_process_tiny(n)
     cap = full_captioner("bfloat16")
     v = cap.clip_model.config.vision
@@ -2363,7 +2512,20 @@ def phase_scale(iters: int, cards: Optional[List[str]] = None) -> None:
     meshed = Captioner(cap.bert_model, cap.clip_model, cap.wp, cap.bpe,
                        cap.cfg, mesh=mesh)
     phase_mesh_main(iters, meshed, pixels, one, label)
-    del meshed, cap
+    if mesh_2d is not None:
+        mem = {label: (card_memory(n), vocab_bytes(meshed))}
+        split = Captioner(cap.bert_model, cap.clip_model, cap.wp, cap.bpe,
+                          cap.cfg, mesh=mesh_2d)
+        del meshed, cap  # the whole word table goes with them
+        phase_mesh_main(iters, split, pixels, one, label_2d)
+        mem[label_2d] = (card_memory(n), vocab_bytes(split))
+        for what, (allocated, vocab) in mem.items():
+            say(f"scale [{what}, memory]: allocated per card (MB) "
+                f"{[round(b / 1e6, 1) for b in allocated]}; word table and "
+                f"MLM bias per card (B) {vocab}; card {card_line()}")
+        del split
+    else:
+        del meshed, cap
     torch.cuda.empty_cache()
     cli = phase_cli_run(iters, one["launches"])
     phase_cli_multihost(cli, iters, n)
@@ -2653,9 +2815,10 @@ def main(argv=None) -> int:
         cap.bert_model, cap.clip_model, cap.wp, cap.bpe, cap.cfg,
         mesh=make_mesh(2, devices=["cuda:0", "cuda:0"])), pixels,
         main["pallas"], "two replicas on cuda:0, one thread each")
+    mesh_2d = phase_mesh_2d_main(MESH_2D_ITERS, cap, pixels)
     del cap
     torch.cuda.empty_cache()
-    say(f"phase int8 product, app, index and two threads ok "
+    say(f"phase int8 product, app, index, two threads and the 2 x 2 mesh ok "
         f"({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
@@ -2692,6 +2855,7 @@ def main(argv=None) -> int:
                                 for label, run in new_paths.items()},
             launches_pruned={read: run["launches"][name]
                              for read, run in pruned.items()},
+            launches_mesh_2x2=mesh_2d["launches"][name],
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
             bound_ms=s["bound_ms"], bound_by=s["bound_by"],
             library_ms=s["library_ms"],

@@ -24,7 +24,11 @@ copies of the last row; the blocks run on one thread each, as
 ``torch.nn.parallel.parallel_apply`` runs replicas, and their results are
 put back in order. The threads share one interpreter and the Gibbs step
 is thousands of small ops: a mesh in one process measured slower than one
-device, while several processes scale. In a multi-process run
+device, while several processes scale. A (data, model) mesh
+(``parallel.mesh.make_mesh_2d``) keeps one replica a data row, on the
+row's first device, with BERT's word table and MLM bias cut over the row's
+devices (``parallel/vocab.py``): the same captions, less memory per
+device, not more speed. In a multi-process run
 (``parallel/distributed.py``) each process takes its block of the rows
 and every process gathers every block's results.
 """
@@ -71,10 +75,14 @@ from conzic_torch.models.convert import (
 )
 from conzic_torch.parallel import distributed
 from conzic_torch.parallel.mesh import (
+    data_devices,
+    mesh_rows,
+    model_axis,
     pad_batch_to_mesh,
     replicate,
     shard_batch,
 )
+from conzic_torch.parallel.vocab import cuts, split_vocab
 from conzic_torch.runtime.image import preprocess_batch_pil
 from conzic_torch.text.bpe import CLIPBPETokenizer
 from conzic_torch.text.bridge import build_bridge_table
@@ -101,6 +109,8 @@ STAGE1_CALIB_FLOOR = 0.91
 # the pruned tiers' tables: the proxy's word embeddings, the factorized
 # stage-1's projection and the tower pre-cut's
 PRUNE_TABLES = ("word_embeds", "stage1_wcal", "stage1_wcal_pc")
+
+logger = logging.getLogger(__name__)
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -197,12 +207,17 @@ class Captioner:
                  config: Optional[ConzicConfig] = None,
                  device: Union[str, torch.device] = "cuda", mesh=None):
         """``mesh``: a data mesh (``parallel.mesh.make_mesh``, a list of
-        devices); the captioner's own device is then the mesh's first."""
+        devices) or a (data, model) mesh (``make_mesh_2d``, a list of
+        rows); the captioner's own device is then the mesh's first."""
         self.cfg = config or ConzicConfig()
         self.cfg.validate()
         self.mesh = mesh
         if mesh is not None:
-            device = mesh[0]
+            device = data_devices(mesh)[0]
+        if model_axis(mesh) is not None and distributed.process_count() > 1:
+            raise ValueError(
+                "a (data, model) mesh runs in one process; over several "
+                "processes (--multihost) give each a data mesh or none")
         self.device = resolve_device(device)
         self.wp, self.bpe = wp, bpe
         stop_words = (load_stop_words_file(self.cfg.stop_words_path)
@@ -248,22 +263,40 @@ class Captioner:
         return self.mesh is not None or distributed.process_count() > 1
 
     @property
-    def _devices(self) -> List[torch.device]:
-        """The devices a run's row blocks go to: the mesh's, or the
-        captioner's own."""
-        return [_indexed(resolve_device(d))
-                for d in (self.mesh or [self.device])]
+    def _rows(self) -> List[tuple]:
+        """The devices of each data row a run's row blocks go to: the
+        mesh's rows (one device each on a data mesh), or the captioner's
+        own device."""
+        return [tuple(_indexed(resolve_device(d)) for d in row)
+                for row in mesh_rows(self.mesh or [self.device])]
 
-    def _make_replicas(self) -> Dict[torch.device, tuple]:
-        """(bert, clip) per device of the mesh: the captioner's own towers
-        on its own device, a copy on any other (equal devices share
-        one)."""
-        replicas = {_indexed(self.device): (self.bert_model,
-                                            self.clip_model)}
-        for d in self._devices:
-            if d not in replicas:
-                replicas[d] = (copy.deepcopy(self.bert_model).to(d),
-                               copy.deepcopy(self.clip_model).to(d))
+    def _make_replicas(self) -> Dict[tuple, tuple]:
+        """(bert, clip) per data row: the captioner's own towers on its own
+        device, a copy on any other (equal rows share one). When the
+        mesh's model axis divides the vocabulary, every row's BERT has its
+        word table and MLM bias cut over the row (``parallel/vocab.py``),
+        the captioner's own too: no device holds them whole."""
+        model, V = model_axis(self.mesh), self.bert_model.config.vocab_size
+        split = cuts(model, V)
+        if model is not None and not split:
+            logger.info("a vocabulary of %d does not divide the model "
+                        "axis of %d: BERT's word table and MLM bias stay "
+                        "whole", V, model)
+        own = _indexed(self.device)
+        replicas = {}
+        for row in self._rows:
+            if row in replicas:
+                continue
+            if split:
+                bert = split_vocab(self.bert_model, row)
+            elif row[0] == own:
+                bert = self.bert_model
+            else:
+                bert = copy.deepcopy(self.bert_model).to(row[0])
+            replicas[row] = (bert, self.clip_model if row[0] == own
+                             else copy.deepcopy(self.clip_model).to(row[0]))
+        if split:
+            self.bert_model = replicas[self._rows[0]][0]
         return replicas
 
     # ------------------------------------------------------------------
@@ -289,7 +322,7 @@ class Captioner:
         and the full-size vocabulary."""
         config = config or ConzicConfig()
         if mesh is not None:
-            device = mesh[0]
+            device = data_devices(mesh)[0]
         device = resolve_device(device)
         wp, bpe = cls._tokenizers(wp_vocab)
         bert_config = dataclasses.replace(
@@ -851,7 +884,8 @@ class Captioner:
         devices (this process's share of them), one thread a block, and
         every process gathers every block's outputs; the padding is cut
         off."""
-        devices = self._devices
+        rows = self._rows
+        devices = [row[0] for row in rows]
         procs = distributed.process_count()
         # every input's rows on its leading axis; positions are (I, steps, B)
         by_pos = isinstance(positions, torch.Tensor)
@@ -865,7 +899,7 @@ class Captioner:
 
         def block(j: int) -> Dict[str, np.ndarray]:
             d = devices[j]
-            bert, clip = self._replicas[d]
+            bert, clip = self._replicas[rows[j]]
             with torch.inference_mode(), _on(d):
                 gen = run_generation(
                     spec, bert, clip, {k: v[j] for k, v in tabs.items()},

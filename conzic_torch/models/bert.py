@@ -44,10 +44,14 @@ class BertEmbeddings(nn.Module):
         positions = positions + self.config.position_offset
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = (F.embedding(input_ids, self.word.to(dt))
+        x = (self.word_rows(input_ids)
              + F.embedding(positions, self.position.to(dt))[None]
              + F.embedding(token_type_ids, self.token_type.to(dt)))
         return self.ln(x)
+
+    def word_rows(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The word table's rows of ``input_ids``, in the compute type."""
+        return F.embedding(input_ids, self.word.to(self.dtype))
 
 
 class BertMlmHead(nn.Module):
@@ -63,9 +67,13 @@ class BertMlmHead(nn.Module):
         self.ln = LayerNorm(config.hidden_size, config.layer_norm_eps)
         self.bias = nn.Parameter(torch.zeros(config.vocab_size))
 
+    def transformed(self, hidden: torch.Tensor) -> torch.Tensor:
+        """dense + act + LN: the states the vocabulary projection reads."""
+        return self.ln(self.act(self.transform(hidden)))
+
     def forward(self, hidden: torch.Tensor,
                 word_embedding: torch.Tensor) -> torch.Tensor:
-        h = self.ln(self.act(self.transform(hidden)))
+        h = self.transformed(hidden)
         # the product of compute-type operands leaves in fp32 (the flax
         # head's preferred_element_type=float32): rounding the logits to
         # bf16 before the T=0.1 softmax would create extra ties. The

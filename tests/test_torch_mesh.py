@@ -34,8 +34,15 @@ def test_make_mesh_refuses_what_is_not_there():
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="only 0 device"):
             mesh_lib.make_mesh(2)
+        with pytest.raises(ValueError, match="only 0 device"):
+            mesh_lib.make_mesh_2d(2, 2)
     with pytest.raises(ValueError, match="at least one device"):
         mesh_lib.make_mesh(devices=[])
+    assert mesh_lib.make_mesh_2d(4, 2, devices=CPUS) == [
+        [torch.device("cpu")] * 2] * 4
+    with pytest.raises(ValueError, match="requested a 3x3 mesh but only 8 "
+                                         "device"):
+        mesh_lib.make_mesh_2d(3, 3, devices=CPUS)
 
 
 def test_pad_batch_to_mesh():
