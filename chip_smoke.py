@@ -82,7 +82,19 @@ Phases, each printing its own lines:
    (``MESH_2D_ITERS``), the main path on one card, on that data mesh and
    on a 2 x 2 (data, model) mesh of the card with V = 30,522 cut in two:
    caps/s, launch counts equal to the data mesh's, the share of best ids
-   equal to one card's, and each shard's bytes.
+   equal to one card's, and each shard's bytes;
+9. training (``phase_train``): the LayerNorm Function on the card (the
+   kernel forward, launch counted, and the reference's plain backward)
+   against the CPU at F = 128, 256 and 768, fp32 and bf16 x; one fp32
+   step of a tiny CLIP and a tiny BERT, card against CPU from the same
+   parameters, batch and masks (losses, gradient norms, the gradients
+   below the first LayerNorm non-zero); then the trainer's command
+   (``conzic_torch.train.tiny``) at trained_mid/'s widths with the data
+   and the steps cut (``TRAIN_MID``, ``TRAIN_CUTS``): steps/s per tower,
+   the loss falling, LayerNorm launches equal to the towers' structure
+   (forward kernels only), the LayerNorm forward's and backward's device
+   time a step, peak memory; and the saved directory captioning two
+   scenes on the card through ``Captioner.from_tiny_dir``.
 
 ``--scale`` (a machine of two or more cards) runs only the scale-out
 phase over every card: tiny fp32 ids equal to the CPU's on a data mesh
@@ -98,7 +110,8 @@ The last two lines are a JSON object with one entry per kernel (its
 ``launches`` are those of the main-path run under the ``attn_impl`` that the
 kernel carries; ``launches_by_attn_impl`` has every run's,
 ``launches_pruned`` the pruned reads', ``launches_new_paths`` phase 7's,
-``launches_mesh_2x2`` phase 8's 2 x 2 mesh's)
+``launches_mesh_2x2`` phase 8's 2 x 2 mesh's, ``launches_train`` phase
+9's full-width training command's)
 and
 ``{"ok": true, "device": {...}}``. Without CUDA, or when a phase fails, the
 script exits non-zero without them. It imports nothing of JAX.
@@ -130,6 +143,7 @@ import socket
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from typing import Callable, Dict, List, Optional
@@ -154,6 +168,7 @@ from conzic_torch.eval.sentiment_eval import (
     batch_texts_sentiment_scores,
 )
 from conzic_torch.kernels import build
+from conzic_torch.kernels.build import card_line
 from conzic_torch.kernels.attention_block import (
     attention_block,
     attention_block_plain,
@@ -162,12 +177,17 @@ from conzic_torch.kernels.attention_with_out import (
     attention_with_out,
     attention_with_out_plain,
 )
-from conzic_torch.kernels.layer_norm import layer_norm, layer_norm_plain
+from conzic_torch.kernels.layer_norm import (
+    layer_norm,
+    layer_norm_backward_plain,
+    layer_norm_plain,
+)
 from conzic_torch.kernels.masked_attention import (
     masked_attention,
     masked_attention_plain,
 )
 from conzic_torch.kernels.timing import time_ms
+from conzic_torch.models.checkpoint import load_tiny_checkpoint
 from conzic_torch.models.configs import BertConfig, CLIPConfig
 from conzic_torch.models.convert import hf_names
 from conzic_torch.models.layers import Linear
@@ -183,6 +203,8 @@ from conzic_torch.text.vocab import (
     make_test_bpe_files,
     make_test_wordpiece_vocab,
 )
+from conzic_torch.train import optim as train_optim
+from conzic_torch.train import tiny as train_tiny
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense tensor-core bf16
@@ -312,14 +334,6 @@ CONTROL_CASES = (
 
 def say(*parts) -> None:
     print(*parts, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -2531,6 +2545,308 @@ def phase_scale(iters: int, cards: Optional[List[str]] = None) -> None:
     phase_cli_multihost(cli, iters, n)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the training path
+# ---------------------------------------------------------------------------
+
+# the LayerNorm Function, card against CPU: (F, rows) per type, the rows no
+# multiple of a block of the kernel
+TRAIN_LN_SHAPES = ((128, 999), (256, 1201), (768, 333))
+# backward tolerances, card (kernel forward, plain backward) against the
+# CPU: dx within 2^-7 of |dx| (one bf16 step; fp32: 1e-5) plus 1e-5 of
+# max|dx| (sums over a row in another order); dscale and dbias, fp32 sums
+# over every row in another order, within 1e-4 of their largest entry
+TRAIN_DX_REL = {torch.float32: 1e-5, torch.bfloat16: BF16_ULP}
+TRAIN_SUM_REL = 1e-4
+# the tiny fp32 step, card against CPU: loss to 1e-5 relative, the global
+# gradient norm to 1e-3 relative (CUDA's scatter-add in the embeddings'
+# backward sums in another order each run), each parameter's gradient norm
+# to 1e-3 of itself plus 1e-3 of the global norm's 1e-3: the key bias's
+# gradient is zero but for rounding (a constant added to a row's logits),
+# so its norm is noise, while a missing gradient misses by its whole norm
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL = 1e-3
+# the full-width read: trained_mid/'s arguments, only the data and the
+# steps cut (trained_mid: train_n 16,384, val_n 512, 6,000 CLIP and 4,000
+# BERT steps)
+TRAIN_MID = ["--world", "rich", "--vocab_size", "16384", "--hidden", "256",
+             "--heads", "8", "--clip_text_layers", "12", "--bert_layers",
+             "4", "--batch", "256", "--seed", "0"]
+TRAIN_CUTS = ["--train_n", "2048", "--val_n", "256", "--clip_steps", "50",
+              "--bert_steps", "50"]
+
+
+def phase_train_layer_norm(gen) -> None:
+    """The LayerNorm Function on the card (the kernel forward, launch
+    counted, then the reference's backward) against the same on the CPU
+    (the plain forward and backward), fp32 and bf16 x, fp32 scale and
+    bias."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for feat, rows in TRAIN_LN_SHAPES:
+            x = (torch.randn(rows, feat, device=DEVICE, generator=gen) * 3
+                 + 1).to(dtype)
+            scale = torch.rand(feat, device=DEVICE, generator=gen) + 0.5
+            bias = torch.randn(feat, device=DEVICE, generator=gen)
+            dy = torch.randn(rows, feat, device=DEVICE,
+                             generator=gen).to(dtype)
+            out = {}
+            for dev in (DEVICE, "cpu"):
+                xs = [t.detach().to(dev).requires_grad_()
+                      for t in (x, scale, bias)]
+                reset_launches()
+                y = layer_norm(*xs, 1e-5)
+                launches = layer_norm.launches
+                y.backward(dy.to(dev))
+                out[dev] = [y.detach().cpu()] + [t.grad.cpu() for t in xs]
+                want = 1 if dev == DEVICE else 0
+                if (type(y.grad_fn).__name__ != "LayerNormFunctionBackward"
+                        or launches != want):
+                    raise AssertionError(
+                        f"layer_norm under grad on {dev}: grad_fn "
+                        f"{type(y.grad_fn).__name__}, {launches} launches")
+            (y, dx, ds, db), (y0, dx0, ds0, db0) = out[DEVICE], out["cpu"]
+            y_err = float((y.float() - y0.float()).abs().max())
+            y_ulp = float(((y.float() - y0.float()).abs() / (
+                BF16_ULP * y0.float().abs().clamp(min=1.0))).max())
+            dx_err = (dx.float() - dx0.float()).abs()
+            dx_tol = (TRAIN_DX_REL[dtype] * dx0.float().abs()
+                      + 1e-5 * float(dx0.float().abs().max()))
+            sums = [float((a - b).abs().max() / b.abs().max())
+                    for a, b in ((ds, ds0), (db, db0))]
+            say(f"train layer_norm [{str(dtype)[6:]}, F={feat}, rows={rows}]"
+                f": y max |diff| {y_err:.3g} ({y_ulp:.3g} bf16 ulp); dx "
+                f"max |diff| {float(dx_err.max()):.3g}, worst share of its "
+                f"tolerance {float((dx_err / dx_tol).max()):.3g}; dscale, "
+                f"dbias max |diff| / max {sums[0]:.3g}, {sums[1]:.3g} "
+                f"(limit {TRAIN_SUM_REL:g})")
+            y_ok = (y_ulp <= BF16_ULPS["layer_norm"]
+                    if dtype == torch.bfloat16 else y_err <= FP32_ATOL)
+            if (not y_ok or bool((dx_err > dx_tol).any())
+                    or max(sums) > TRAIN_SUM_REL):
+                raise AssertionError("the LayerNorm Function on the card "
+                                     "strays from the CPU's")
+
+
+def phase_train_step() -> None:
+    """One fp32 step of a tiny CLIP and a tiny BERT on the card and on the
+    CPU from the same parameters, batch and masks: losses, the global
+    gradient norm and every parameter's gradient norm within their
+    tolerances; the word table's, the token table's and the patch
+    embedding's gradients (below the first LayerNorm) non-zero."""
+    with tempfile.TemporaryDirectory() as staging:
+        world = train_tiny.build_world(64, 0, 256, False, staging)
+    args = train_tiny.parse_args(["--hidden", "64", "--heads", "2",
+                                  "--bert_layers", "2",
+                                  "--clip_text_layers", "2"])
+    bert_cfg, clip_cfg = train_tiny.tower_configs(args, world)
+    bert, clip = train_tiny.build_towers(bert_cfg, clip_cfg,
+                                         torch.device("cpu"), torch.float32,
+                                         seed=0)
+    rng = np.random.RandomState(0)
+    idx = torch.from_numpy(rng.randint(0, 64, size=16).astype(np.int32))
+    special = torch.tensor(world.special_ids, dtype=torch.int32)
+    data = train_tiny.DeviceData(world, 64, torch.device("cpu"))
+    m = train_tiny.mlm_mask(data.wp_ids[idx], data.wp_mask[idx], special,
+                            torch.Generator().manual_seed(0))
+    below = {"clip": ("text_model.token_embedding",
+                      "vision_model.patch_embedding"),
+             "bert": ("embeddings.word",)}
+    for name, model in (("clip", clip), ("bert", bert)):
+        got = {}
+        for dev in ("cpu", DEVICE):
+            mod = copy.deepcopy(model).to(dev)
+            d = train_tiny.DeviceData(world, 64, torch.device(dev))
+            i = idx.to(dev)
+            reset_launches()
+            if name == "clip":
+                loss = train_tiny.clip_loss(mod, d.pixels_of(i),
+                                            d.clip_ids[i], d.clip_mask[i])
+            else:
+                loss = train_tiny.bert_loss(mod, d.wp_ids[i], d.wp_mask[i],
+                                            m.to(dev),
+                                            world.wp.mask_token_id)
+            names, params = zip(*mod.named_parameters())
+            grads = torch.autograd.grad(loss, params)
+            got[dev] = dict(loss=float(loss.detach()),
+                            launches=layer_norm.launches,
+                            norm=float(train_optim.global_norm(grads)),
+                            each={n: float(g.norm())
+                                  for n, g in zip(names, grads)})
+        a, b = got[DEVICE], got["cpu"]
+        share = {n: abs(a["each"][n] - b["each"][n]) / (TRAIN_GRAD_REL * (
+            b["each"][n] + 1e-3 * b["norm"])) for n in b["each"]}
+        worst_name = max(share, key=share.get)
+        worst = share[worst_name]
+        say(f"train step [tiny {name}, fp32, card against CPU]: loss "
+            f"{a['loss']:.7g} / {b['loss']:.7g}, global gradient norm "
+            f"{a['norm']:.7g} / {b['norm']:.7g}; parameter gradient norms: "
+            f"worst share of the tolerance {worst:.3g} ({worst_name}: "
+            f"{a['each'][worst_name]:.4g} / {b['each'][worst_name]:.4g}); "
+            f"gradient norms below the first LayerNorm "
+            f"{ {n: round(a['each'][n], 6) for n in below[name]} }; "
+            f"layer_norm launches {a['launches']}")
+        if (abs(a["loss"] / b["loss"] - 1) > TRAIN_LOSS_REL
+                or abs(a["norm"] / b["norm"] - 1) > TRAIN_GRAD_REL
+                or worst > 1.0 or a["launches"] <= 0
+                or any(a["each"][n] <= 0 for n in below[name])):
+            raise AssertionError(f"the tiny {name} step on the card strays "
+                                 f"from the CPU's")
+
+
+def train_ln_shapes(clip_cfg, bert_cfg, B: int, S_wp: int
+                    ) -> Dict[str, List[tuple]]:
+    """(rows, features) of every LayerNorm call of one forward of a CLIP
+    step and of a BERT step: the vision tower (pre, two a block, post on
+    the class row), the text tower (two a block, the last block's second
+    and the final one on the pooled row) and BERT (embeddings, two a
+    block, the MLM head's)."""
+    v, t = clip_cfg.vision, clip_cfg.text
+    clip = ([(B * v.seq_len, v.hidden_size)] * (2 * v.num_layers + 1)
+            + [(B, v.hidden_size)]
+            + [(B * train_tiny.CLIP_LEN, t.hidden_size)]
+            * (2 * t.num_layers - 1) + [(B, t.hidden_size)] * 2)
+    bert = [(B * S_wp, bert_cfg.hidden_size)] * (2 * bert_cfg.num_layers + 2)
+    return dict(clip=clip, bert=bert)
+
+
+def train_ln_ms(shapes: List[tuple], gen) -> tuple:
+    """Device ms of one step's LayerNorm forward kernels and of their
+    plain backward (bf16 x, fp32 scale and bias, as the trainer's), each
+    call timed at its shape."""
+    fwd = bwd = 0.0
+    with torch.no_grad():
+        for rows, feat in shapes:
+            x = torch.randn(rows, feat, device=DEVICE, generator=gen).to(
+                torch.bfloat16)
+            dy = torch.randn_like(x)
+            scale = torch.rand(feat, device=DEVICE, generator=gen) + 0.5
+            bias = torch.randn(feat, device=DEVICE, generator=gen)
+            fwd += time_ms(lambda: layer_norm(x, scale, bias, 1e-5), 20)
+            bwd += time_ms(lambda: layer_norm_backward_plain(x, scale, dy,
+                                                             1e-5), 20)
+    return fwd, bwd
+
+
+def check_train_ln(shapes: List[tuple], gen) -> None:
+    """The LayerNorm kernel against its plain version on the same card
+    tensors at each (rows, features) a training step gives it (bf16 x, fp32
+    scale and bias), to phase 2's bound: BF16_ULPS['layer_norm'] bf16 ulps
+    of max(|plain|, 1)."""
+    with torch.no_grad():
+        for rows, feat in sorted(set(shapes)):
+            x = (torch.randn(rows, feat, device=DEVICE, generator=gen) * 3
+                 + 1).to(torch.bfloat16)
+            scale = torch.rand(feat, device=DEVICE, generator=gen) + 0.5
+            bias = torch.randn(feat, device=DEVICE, generator=gen)
+            y = layer_norm(x, scale, bias, 1e-5).float()
+            y0 = layer_norm_plain(x, scale, bias, 1e-5).float()
+            diff = (y - y0).abs()
+            ulp = float((diff / (BF16_ULP * y0.abs().clamp(min=1.0))).max())
+            say(f"train layer_norm [kernel against plain, bf16, rows={rows},"
+                f" F={feat}]: max |diff| {float(diff.max()):.3g}, {ulp:.3g} "
+                f"bf16 ulp (limit {BF16_ULPS['layer_norm']})")
+            if ulp > BF16_ULPS["layer_norm"]:
+                raise AssertionError(f"layer_norm at ({rows}, {feat}) "
+                                     f"strays from its plain version")
+
+
+def trained_tiny_ln_shapes() -> Dict[str, List[tuple]]:
+    """train_ln_shapes at trained_tiny/'s recorded arguments (the trainer's
+    default widths, B and the WordPiece row length from its meta)."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "trained_tiny", "conzic_tiny.json")) as f:
+        meta = json.load(f)["meta"]
+    args = train_tiny.parse_args([])
+    bert_cfg = train_tiny.small_bert_config(
+        meta["dataset"]["wp_vocab"], hidden=args.hidden, heads=args.heads,
+        layers=args.bert_layers)
+    clip_cfg = train_tiny.small_clip_config(  # eos id: no shape reads it
+        meta["dataset"]["bpe_vocab"], 0, text_layers=args.clip_text_layers,
+        hidden=args.hidden, heads=args.heads)
+    return train_ln_shapes(clip_cfg, bert_cfg, meta["args"]["batch"],
+                           meta["dataset"]["wp_seq"])
+
+
+def phase_train_full() -> dict:
+    """The trainer's command (``conzic_torch.train.tiny.main``) at
+    trained_mid/'s arguments with the data and the steps cut: steps/s per
+    tower, the mean loss of its first and last chunk (it must fall),
+    LayerNorm launches (the towers' structure: forward kernel only, the
+    backward is plain) and peak memory; then the saved directory through
+    ``Captioner.from_tiny_dir`` on the card, two rendered scenes
+    captioned at k=16."""
+    out = scratch_dir("train_mid")
+    argv = TRAIN_MID + TRAIN_CUTS + ["--out", out, "--device", DEVICE]
+    say(f"train [trained_mid's arguments]: {' '.join(TRAIN_MID)}; cut: "
+        f"{' '.join(TRAIN_CUTS)} (trained_mid: train_n 16384, val_n 512, "
+        f"clip_steps 6000, bert_steps 4000)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    res = train_tiny.main(argv)
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    bert_cfg, _, clip_cfg, _, doc = load_tiny_checkpoint(out)
+    shapes = train_ln_shapes(clip_cfg, bert_cfg,
+                             doc["meta"]["args"]["batch"],
+                             doc["meta"]["dataset"]["wp_seq"])
+    per_step = {t: len(shapes[t]) for t in shapes}
+    steps = {t: res[t]["steps"] for t in ("clip", "bert")}
+    train_want = sum(steps[t] * per_step[t] for t in steps)
+    # validation: the vision and text towers once each, the text tower
+    # again on the shuffled captions, BERT once
+    n_vision = 2 * clip_cfg.vision.num_layers + 2
+    val_want = (per_step["clip"] + per_step["clip"] - n_vision
+                + per_step["bert"])
+    want = dict.fromkeys(WRAPPERS, 0)
+    want["layer_norm"] = train_want + val_want
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    tiny_shapes = trained_tiny_ln_shapes()
+    check_train_ln(shapes["clip"] + shapes["bert"] + tiny_shapes["clip"]
+                   + tiny_shapes["bert"], gen)
+    for tower in ("clip", "bert"):
+        r = res[tower]
+        step_ms = 1e3 * r["seconds"] / r["steps"]
+        fwd, bwd = train_ln_ms(shapes[tower], gen)
+        say(f"train [{tower}]: {r['steps']} steps in {r['seconds']:.3f} s, "
+            f"{r['steps'] / r['seconds']:.4f} steps/s ({step_ms:.3f} ms a "
+            f"step); chunk mean loss first {r['losses'][0]:.4f}, last "
+            f"{r['losses'][-1]:.4f}; layer_norm launches a step "
+            f"{per_step[tower]}; their device time a step: forward kernels "
+            f"{fwd:.4f} ms, the plain backward {bwd:.4f} ms "
+            f"({bwd / step_ms:.4f} of the step's wall time)")
+    say(f"train: {wall:.3f} s of command, peak memory {peak_gib:.2f} GiB; "
+        f"launches {launches}, the structure gives {want} ({train_want} in "
+        f"training, {val_want} in validation); validation "
+        f"{json.dumps(res['validation'])}; card {card_line()}")
+    if launches != want:
+        raise AssertionError(f"training launches {launches} != {want}")
+    if any(not r["losses"][-1] < r["losses"][0]
+           for r in (res["clip"], res["bert"])):
+        raise AssertionError("the training loss did not fall")
+    cap = Captioner.from_tiny_dir(ConzicConfig(), out, device=DEVICE)
+    images, _, _ = synthetic.build_dataset(2, seed=50, rich=True)
+    res_cap = cap.run(cap.encode_images([Image.fromarray(a) for a in images]),
+                      rng=np.random.RandomState(0),
+                      **run_args(max_len=8, top_k=16, max_iter=2,
+                                 order="sequential"))
+    texts = res_cap.gen_texts_list[-2]
+    say(f"train [saved, from_tiny_dir on the card, k=16]: {texts}")
+    if len(texts) != 2 or not all(t.startswith("image of a ")
+                                  for t in texts):
+        raise AssertionError(f"the saved checkpoint's captions: {texts}")
+    shutil.rmtree(out)
+    return dict(launches=launches, per_step=per_step)
+
+
+def phase_train() -> dict:
+    phase_train_layer_norm(torch.Generator(device=DEVICE).manual_seed(10))
+    phase_train_step()
+    return phase_train_full()
+
+
 PROFILE_GROUPS = (
     ("layer_norm kernel", ("layer_norm_kernel",)),
     ("masked_attention kernel", ("masked_attention_",)),
@@ -2839,7 +3155,10 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     phase_trained_precision()
     phase_trained_pruned()
-    say(f"phase trained precision ok ({time.perf_counter() - t:.1f} s); "
+    say(f"phase trained precision ok ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    train = phase_train()
+    say(f"phase train ok ({time.perf_counter() - t:.1f} s); "
         f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -2856,6 +3175,7 @@ def main(argv=None) -> int:
             launches_pruned={read: run["launches"][name]
                              for read, run in pruned.items()},
             launches_mesh_2x2=mesh_2d["launches"][name],
+            launches_train=train["launches"][name],
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
             bound_ms=s["bound_ms"], bound_by=s["bound_by"],
             library_ms=s["library_ms"],

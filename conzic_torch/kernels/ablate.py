@@ -128,10 +128,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=2,
                     help="rounds over all variants (the second in reverse)")
     args = ap.parse_args(argv)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(card.stdout.strip().splitlines()[0], flush=True)
+    print(build.card_line(), flush=True)
     libs = build_variants()
     call = text_chunk_call()
     labels = list(libs)

@@ -5,6 +5,12 @@ LayerNorm of the port's three towers and of the MLM head goes through
 :func:`layer_norm`: a tensor on the CPU takes :func:`layer_norm_plain`, a
 tensor on a CUDA device takes the kernel, and anything the kernel does not
 take raises.
+
+Under autograd (grad mode on and an input that requires grad) the call goes
+through :class:`LayerNormFunction`, the counterpart of the reference's custom
+VJP (``fused_ln.py:34-72``): the same forward, and the reference's backward
+in plain PyTorch (:func:`layer_norm_backward_plain`), as the reference's is
+plain jnp. Serving runs under ``inference_mode`` and calls the forward alone.
 """
 
 from __future__ import annotations
@@ -31,6 +37,46 @@ def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
+def layer_norm_backward_plain(x: torch.Tensor, scale: torch.Tensor,
+                              dy: torch.Tensor, eps: float):
+    """The reference's LayerNorm backward (``_fused_ln_bwd``): fp32
+    statistics recomputed from ``x``; returns ``dx`` in x's type and
+    ``dscale``, ``dbias`` in fp32, summed over every leading axis."""
+    xf = x.float()
+    dyf = dy.float()
+    mean = xf.mean(-1, keepdim=True)
+    mean2 = (xf * xf).mean(-1, keepdim=True)
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    r = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * r
+    dyg = dyf * scale.float()
+    dx = r * (dyg - dyg.mean(-1, keepdim=True)
+              - xhat * (dyg * xhat).mean(-1, keepdim=True))
+    lead = tuple(range(dy.dim() - 1))
+    dscale = (dyf * xhat).sum(lead)
+    dbias = dyf.sum(lead)
+    return dx.to(x.dtype), dscale, dbias
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """LayerNorm with the reference's gradient: the forward of
+    :func:`layer_norm` (the kernel on a CUDA tensor), the backward
+    :func:`layer_norm_backward_plain` on the saved ``(x, scale)``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        ctx.bias_dtype = bias.dtype
+        return _layer_norm(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale, dbias = layer_norm_backward_plain(x, scale, dy, ctx.eps)
+        return dx, dscale.to(scale.dtype), dbias.to(ctx.bias_dtype), None
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("layer_norm")
     if not getattr(lib, "_conzic_typed", False):
@@ -49,7 +95,18 @@ def _lib() -> ctypes.CDLL:
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
     """LayerNorm over the last axis of ``x`` (..., F) with ``scale`` and
-    ``bias`` (F,); output in ``x``'s type."""
+    ``bias`` (F,); output in ``x``'s type. Differentiable through
+    :class:`LayerNormFunction` when grad mode is on and an input requires
+    grad; otherwise the forward alone."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return LayerNormFunction.apply(x, scale, bias, eps)
+    return _layer_norm(x, scale, bias, eps)
+
+
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    """The forward: the plain version on the CPU, the kernel on CUDA."""
     if x.device.type == "cpu":
         return layer_norm_plain(x, scale, bias, eps)
     if x.device.type != "cuda":

@@ -24,10 +24,7 @@ def main() -> int:
                                                        "-fPIC")]
     subprocess.run([build._nvcc(), *flags, "-o", str(exe),
                     str(build.CSRC / "probe_rates.cu")], check=True)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(card.stdout.strip().splitlines()[0], flush=True)
+    print(build.card_line(), flush=True)
     return subprocess.run([str(exe)], timeout=300).returncode
 
 

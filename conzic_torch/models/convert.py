@@ -1,5 +1,6 @@
 """Checkpoints -> port modules: ``conzic_tpu`` parameter trees and HF
-state dicts.
+state dicts; and port modules -> ``conzic_tpu`` parameter trees
+(:func:`to_jax_params`, the exact inverse of :func:`from_jax_params`).
 
 ``from_hf_state_dict`` (at the end of this file) loads the HF checkpoints
 that ``Captioner.from_pretrained`` reads, as ``conzic_tpu/models/convert.py``
@@ -24,7 +25,7 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -143,6 +144,119 @@ def from_jax_params(module: nn.Module, params: Mapping) -> nn.Module:
     else:
         raise TypeError(f"from_jax_params: no layout for {type(module)}")
     return module
+
+
+# ---------------------------------------------------------------------------
+# port modules -> conzic_tpu parameter trees
+# ---------------------------------------------------------------------------
+
+# DenseGeneral's q/k/v bias is (H, D) in the flax layout, the port's (E,)
+_HEAD_BIASES = tuple(f"attention.{n}.bias" for n in ("query", "key", "value"))
+
+
+def flax_ndim(name: str, param: torch.Tensor) -> int:
+    """The number of axes of the port parameter ``name`` in the flax
+    layout (what the JAX trainer's weight-decay mask reads)."""
+    return param.dim() + 1 if name.endswith(_HEAD_BIASES) else param.dim()
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A parameter as a numpy array; bf16 (which numpy lacks) as the fp32
+    array of the same values."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def _dense_tree(lin: Linear, kernel_shape: Optional[Tuple[int, ...]] = None,
+                bias_shape: Optional[Tuple[int, ...]] = None) -> Dict:
+    """Linear weight (out, in) -> the flax kernel, transposed to (in, out)
+    (``nn.Dense``'s) or reshaped to ``kernel_shape`` (``DenseGeneral``'s);
+    the bias as (out,) or reshaped to ``bias_shape``."""
+    w = _array(lin.weight.T)
+    out = {"kernel": w if kernel_shape is None else w.reshape(kernel_shape)}
+    if lin.bias is not None:
+        b = _array(lin.bias)
+        out["bias"] = b if bias_shape is None else b.reshape(bias_shape)
+    return out
+
+
+def _ln_tree(ln: LayerNorm) -> Dict:
+    return {"ln": {"scale": _array(ln.scale), "bias": _array(ln.bias)}}
+
+
+def _stack_tree(stack: TransformerStack) -> Dict:
+    out = {}
+    for i, block in enumerate(stack.layers):
+        attn = block.attention
+        H, D = attn.num_heads, attn.head_dim
+        E = H * D
+        qkv = {n: _dense_tree(getattr(attn, n), (E, H, D), (H, D))
+               for n in ("query", "key", "value")}
+        qkv["out"] = _dense_tree(attn.out, (H, D, E))
+        mlp = block.mlp
+        out[f"layer_{i}"] = {
+            "attention": qkv,
+            "mlp": {"fc1": _dense_tree(mlp.fc1),
+                    "fc2": _dense_tree(mlp.fc2)},
+            "ln1": _ln_tree(block.ln1),
+            "ln2": _ln_tree(block.ln2),
+        }
+    return out
+
+
+def _bert_tree(m: BertForMaskedLM) -> Dict:
+    e, head = m.embeddings, m.mlm
+    return {
+        "embeddings": {
+            "word": {"embedding": _array(e.word)},
+            "position": {"embedding": _array(e.position)},
+            "token_type": {"embedding": _array(e.token_type)},
+            "ln": _ln_tree(e.ln),
+        },
+        "encoder": _stack_tree(m.encoder),
+        "mlm": {"transform": _dense_tree(head.transform),
+                "ln": _ln_tree(head.ln), "bias": _array(head.bias)},
+    }
+
+
+def _clip_tree(m: CLIPModel) -> Dict:
+    t, v = m.text_model, m.vision_model
+    return {
+        "text_model": {
+            "token_embedding": {"embedding": _array(t.token_embedding)},
+            "position_embedding": _array(t.position_embedding),
+            "encoder": _stack_tree(t.encoder),
+            "final_ln": _ln_tree(t.final_ln),
+        },
+        "vision_model": {
+            # (out, in, kh, kw) -> flax's (kh, kw, in, out)
+            "patch_embedding": {"kernel": _array(
+                v.patch_embedding.permute(2, 3, 1, 0))},
+            "class_embedding": _array(v.class_embedding),
+            "position_embedding": _array(v.position_embedding),
+            "pre_ln": _ln_tree(v.pre_ln),
+            "encoder": _stack_tree(v.encoder),
+            "post_ln": _ln_tree(v.post_ln),
+        },
+        "text_projection": _dense_tree(m.text_projection),
+        "visual_projection": _dense_tree(m.visual_projection),
+        "logit_scale": _array(m.logit_scale),
+    }
+
+
+def to_jax_params(module: nn.Module) -> Dict:
+    """The parameters of ``module`` (a :class:`BertForMaskedLM` or
+    :class:`CLIPModel`) as the ``conzic_tpu`` parameter tree: nested dicts
+    of numpy arrays in the flax layout, the inverse of
+    :func:`from_jax_params`. fp32 parameters come out as fp32 arrays;
+    bf16 ones as fp32 arrays of the same values."""
+    if isinstance(module, BertForMaskedLM):
+        return _bert_tree(module)
+    if isinstance(module, CLIPModel):
+        return _clip_tree(module)
+    raise TypeError(f"to_jax_params: no layout for {type(module)}")
 
 
 # ---------------------------------------------------------------------------
