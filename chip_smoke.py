@@ -94,7 +94,15 @@ Phases, each printing its own lines:
    the loss falling, LayerNorm launches equal to the towers' structure
    (forward kernels only), the LayerNorm forward's and backward's device
    time a step, peak memory; and the saved directory captioning two
-   scenes on the card through ``Captioner.from_tiny_dir``.
+   scenes on the card through ``Captioner.from_tiny_dir``;
+10. bench and tools (``phase_bench_tools``): ``python -m
+   conzic_torch.bench`` at its defaults under the xla and the pallas
+   routes, each JSON line printed and checked (``bench.py``'s keys, a
+   positive value, the label of the settings that ran); then
+   ``conzic_torch.tools.validate_pruning`` (one cell) and
+   ``conzic_torch.tools.trained_quality_cells`` (one job, into a scratch
+   record: its schema, the card as its device) on trained_tiny/ at a small
+   size.
 
 ``--scale`` (a machine of two or more cards) runs only the scale-out
 phase over every card: tiny fp32 ids equal to the CPU's on a data mesh
@@ -2847,6 +2855,87 @@ def phase_train() -> dict:
     return phase_train_full()
 
 
+# the keys of bench.py's JSON line, which conzic_torch.bench keeps
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "vs_baseline_basis",
+              "quality_bounded"}
+# the label of the bench at its defaults (both routes: the label does not
+# name the attention route, as in bench.py)
+BENCH_LABEL = "captions/sec/chip len=10 iters=15 k=200 B=32"
+# the studies' small size on the card: (flag, value) pairs
+STUDY_SIZE = ["--n_images", "4", "--iters", "2", "--sentence_len", "5",
+              "--k", "32"]
+TRAINED_CELL_KEYS = {"caption_exact", "token_agreement", "best_cosine_delta",
+                     "speedup", "session", "checkpoint", "tower_layers",
+                     "best_cos_full", "best_cos_pruned", "attr_recall_full",
+                     "attr_recall_pruned"}
+
+
+def run_module(module: str, args: List[str], env: Optional[dict] = None,
+               timeout: int = 600) -> str:
+    """``python -m module args`` from this checkout, with the
+    ``CONZIC_BENCH_*`` knobs of ``env`` only; its stdout, or an
+    AssertionError with the tail of its output when it fails."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    full = {k: v for k, v in os.environ.items()
+            if not k.startswith("CONZIC_BENCH_")}
+    full.update(env or {})
+    p = subprocess.run([sys.executable, "-m", module, *args], cwd=here,
+                       env=full, capture_output=True, text=True,
+                       timeout=timeout)
+    if p.returncode != 0:
+        raise AssertionError(f"python -m {module} {' '.join(args)} exited "
+                             f"{p.returncode}:\n{(p.stdout + p.stderr)[-4000:]}")
+    return p.stdout
+
+
+def phase_bench_tools() -> None:
+    """``python -m conzic_torch.bench`` at its defaults under the xla and
+    the pallas routes (the JSON line's keys, a positive value, the label
+    of the settings that ran), then two studies on trained_tiny/ at a
+    small size on the card: ``validate_pruning`` (one cell, its printed
+    metrics) and ``trained_quality_cells`` (one job, into a scratch
+    record: its schema and device)."""
+    for attn in ("xla", "pallas"):
+        t = time.perf_counter()
+        out = run_module("conzic_torch.bench", [],
+                         {"CONZIC_BENCH_ATTN": attn})
+        line = json.loads(out.strip().splitlines()[-1])
+        say(f"bench [{attn}]: {json.dumps(line)} "
+            f"({time.perf_counter() - t:.1f} s)")
+        assert set(line) == BENCH_KEYS, sorted(line)
+        assert line["value"] > 0 and line["unit"] == "captions/sec", line
+        assert line["metric"] == BENCH_LABEL, line["metric"]
+    t = time.perf_counter()
+    tiny = ["--lm_model", "trained_tiny", "--match_model", "trained_tiny"]
+    out = run_module("conzic_torch.tools.validate_pruning",
+                     [*tiny, "--prune_k", "5", *STUDY_SIZE])
+    metrics = {}
+    for row in out.splitlines():
+        name, _, value = row.partition(":")
+        if name in ("caption exact-match", "token agreement",
+                    "best-cosine delta (full - pruned)", "speedup"):
+            metrics[name] = float(value.strip().rstrip("%x"))
+    assert len(metrics) == 4, out[-2000:]
+    say(f"study validate_pruning [trained_tiny, prune_k 5, one cell]: "
+        f"{metrics} ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    out_path = os.path.join(scratch_dir("studies"), "PRUNING_MATRIX.json")
+    run_module("conzic_torch.tools.trained_quality_cells",
+               ["--checkpoint", "trained_tiny", "--prune_k", "3",
+                "--topk_mode", "exact", *STUDY_SIZE, "--out", out_path])
+    with open(out_path) as f:
+        matrix = json.load(f)
+    (key, cell), = matrix["trained"]["cells"].items()
+    assert key == "sequential/free/prune3", key
+    assert set(cell) == TRAINED_CELL_KEYS, sorted(cell)
+    assert matrix["trained"]["device"] == card_line(), matrix["trained"]
+    say(f"study trained_quality_cells [trained_tiny, {key}]: "
+        f"best_cosine_delta {cell['best_cosine_delta']:+.5f}, attr_recall "
+        f"{cell['attr_recall_full']:.3f} -> {cell['attr_recall_pruned']:.3f}"
+        f" ({time.perf_counter() - t:.1f} s)")
+    shutil.rmtree(os.path.dirname(out_path))
+
+
 PROFILE_GROUPS = (
     ("layer_norm kernel", ("layer_norm_kernel",)),
     ("masked_attention kernel", ("masked_attention_",)),
@@ -3158,7 +3247,10 @@ def main(argv=None) -> int:
     say(f"phase trained precision ok ({time.perf_counter() - t:.1f} s)")
     t = time.perf_counter()
     train = phase_train()
-    say(f"phase train ok ({time.perf_counter() - t:.1f} s); "
+    say(f"phase train ok ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    phase_bench_tools()
+    say(f"phase bench and tools ok ({time.perf_counter() - t:.1f} s); "
         f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
