@@ -465,32 +465,57 @@ def attn_case(label, N, Sq, Sk, H, D, causal, lens_mode, dtype, gen, P=0,
 
 
 def with_out_case(label, N, Sq, Sk, H, D, E, dtype, gen, causal=True,
-                  lens_mode="reach") -> Case:
+                  lens_mode="reach", P=0, G=1, bias_dtype=None) -> Case:
     """Suffix-over-prefix attention (causal, with key lengths, on the main
     path), then the output projection. Weights and bias in the tensors'
-    type, as the main path stores them."""
+    type, as the main path stores them, unless ``bias_dtype`` says
+    otherwise. With P > 0 the prefix form: the first P of the Sk keys of
+    row n are the (N // G, P, H, D) prefix of image n // G, read once per
+    image (n_bytes counts them so), and the library yardstick is the
+    broadcast and concatenation the caller would otherwise make, then the
+    library's attention and ``F.linear``."""
     def draw(*shape, std=1.0):
         return (torch.randn(*shape, device=DEVICE, generator=gen)
                 * std).to(dtype)
 
-    q, k, v = draw(N, Sq, H, D), draw(N, Sk, H, D), draw(N, Sk, H, D)
+    Ss, B = Sk - P, N // G
+    q, k, v = draw(N, Sq, H, D), draw(N, Ss, H, D), draw(N, Ss, H, D)
+    prefix = (draw(B, P, H, D), draw(B, P, H, D)) if P else None
     wo, bo = draw(E, H * D, std=0.03), draw(E, std=0.1)
+    if bias_dtype is not None:
+        bo = bo.to(bias_dtype)
     lens = draw_lens(lens_mode, N, Sk - Sq + 1, Sk, gen)
     keep = attention_keep_mask(lens, N, Sq, Sk, causal, q.device)
     kept = int(keep.sum().item()) * H
+
+    def cat(p, own):  # each image's prefix before its rows' keys
+        if not P:
+            return own
+        p = p[:, None].expand(B, G, P, H, D).reshape(N, P, H, D)
+        return torch.cat([p, own], dim=1)
+
+    def library():
+        ctx = _sdpa(q, cat(prefix[0], k) if P else k,
+                    cat(prefix[1], v) if P else v, keep, D)
+        return F.linear(ctx.reshape(N, Sq, H * D), wo, bo.to(dtype))
+
     elem = q.element_size()
     return Case(
         "attention_with_out", label, dtype,
-        lambda: attention_with_out(q, k, v, wo, bo, lens, causal),
-        lambda: attention_with_out_plain(q, k, v, wo, bo, lens, causal),
-        lambda: F.linear(_sdpa(q, k, v, keep, D).reshape(N, Sq, H * D), wo,
-                         bo),
-        n_bytes=((N * Sq + 2 * N * Sk) * H * D + N * Sq * E + E * H * D
-                 + E) * elem + (4 * N if lens is not None else 0),
+        lambda: attention_with_out(q, k, v, wo, bo, lens, causal, prefix),
+        lambda: attention_with_out_plain(q, k, v, wo, bo, lens, causal,
+                                         prefix),
+        library,
+        n_bytes=((N * Sq + 2 * N * Ss + 2 * B * P) * H * D + N * Sq * E
+                 + E * H * D) * elem + E * bo.element_size()
+        + (4 * N if lens is not None else 0),
         n_ops=4 * kept * D + 2 * N * Sq * H * D * E)
 
 
-def block_case(label, N, S, E, H, causal, lens_mode, dtype, gen) -> Case:
+def block_case(label, N, S, E, H, causal, lens_mode, dtype, gen,
+               bias_dtype=None) -> Case:
+    """A residual attention block; biases in the tensors' type, as the main
+    path stores them, unless ``bias_dtype`` says otherwise."""
     def draw(*shape, std=1.0):
         return (torch.randn(*shape, device=DEVICE, generator=gen)
                 * std).to(dtype)
@@ -499,6 +524,8 @@ def block_case(label, N, S, E, H, causal, lens_mode, dtype, gen) -> Case:
     x, res = draw(N, S, E), draw(N, S, E)
     params = [t for _ in range(4) for t in (draw(E, E, std=0.03),
                                             draw(E, std=0.1))]
+    if bias_dtype is not None:
+        params = [t.to(bias_dtype) if t.dim() == 1 else t for t in params]
     wq, bq, wk, bk, wv, bv, wo, bo = params
     lens = draw_lens(lens_mode, N, 1, S, gen)
     keep = attention_keep_mask(lens, N, S, S, causal, x.device)
@@ -506,10 +533,10 @@ def block_case(label, N, S, E, H, causal, lens_mode, dtype, gen) -> Case:
     mask = keep if (causal or lens is not None) else None
 
     def library():
-        q, k, v = (F.linear(x, w, b).view(N, S, H, D)
+        q, k, v = (F.linear(x, w, b.to(dtype)).view(N, S, H, D)
                    for w, b in ((wq, bq), (wk, bk), (wv, bv)))
         ctx = _sdpa(q, k, v, mask, D).reshape(N, S, E)
-        return F.linear(ctx, wo, bo) + res
+        return F.linear(ctx, wo, bo.to(dtype)) + res
 
     elem = x.element_size()
     return Case(
@@ -519,7 +546,7 @@ def block_case(label, N, S, E, H, causal, lens_mode, dtype, gen) -> Case:
         lambda: attention_block_plain(x, res, *params, lens, heads=H,
                                       causal=causal),
         library,
-        n_bytes=(3 * N * S * E + 4 * E * E + 4 * E) * elem
+        n_bytes=(3 * N * S * E + 4 * E * E) * elem + 4 * E * bq.element_size()
         + (4 * N if lens is not None else 0),
         n_ops=8 * N * S * E * E + 4 * kept * D)
 
@@ -547,8 +574,10 @@ def main_path_cases(shape, dtype, gen) -> List[Case]:
         attn_case("bert pooled (Sq=1)", B, 1, L, 12, 64, False, "reach",
                   dtype, gen),
         attn_case("vision", B, 50, 50, 12, 64, False, None, dtype, gen),
-        with_out_case("text suffix chunk", kc_rows, S, P + S, 8, 64, 512,
-                      dtype, gen),
+        with_out_case("text suffix chunk, prefix form", kc_rows, S, P + S, 8,
+                      64, 512, dtype, gen, P=P, G=kc_rows // B),
+        with_out_case("text suffix chunk, concatenated", kc_rows, S, P + S,
+                      8, 64, 512, dtype, gen),
         block_case("bert rows", B, L, 768, 12, False, None, dtype, gen),
         block_case("vision rows", B, 50, 768, 12, False, None, dtype, gen),
         block_case("text full-row chunk", kc_rows, P + S, 512, 8, True,
@@ -581,7 +610,7 @@ def pruned_path_cases(shape, dtype, gen) -> List[Case]:
         attn_case("flagship bert rows", B, L, L, 12, 64, False, "reach",
                   dtype, gen),
         with_out_case("flagship chunk, G=1", B, S, P + S, 8, 64, 512, dtype,
-                      gen),
+                      gen, P=P, G=1),
         block_case("flagship bert rows", B, L, 768, 12, False, None, dtype,
                    gen),
     ]
@@ -646,12 +675,17 @@ def edge_cases(dtype, gen) -> List[Case]:
     plain versions and not timed: a row count that the kernels' row groups
     do not divide, key lengths from 0 (no key kept: a uniform softmax) to
     all, Sk = Sq, one query row, sequences of 1, 17, 50 and 100 rows (one to
-    seven 16-row tiles), a group of several rows n whose K and V fit two
-    buffers (the main shape's fit one), causal and not, and head widths on
-    both sides of the tensor-core kernels' condition (D and E multiples of
-    16). Masked attention also in its prefix form: rows that change image
-    inside a block's range, an image per row (G = 1), heads split over
-    several blocks, key lengths inside the prefix."""
+    seven 16-row tiles), causal and not, and head widths on both sides of
+    the tensor-core kernels' conditions (masked attention: D a multiple of
+    16; the two fused kernels: D of 16, 32 or 64 and E a multiple of 16,
+    attention_with_out also at most 64 query rows). Masked attention also
+    in its prefix form: rows that change image inside a block's range, an
+    image per row (G = 1), heads split over several blocks, key lengths
+    inside the prefix. The fused kernels also: fewer than 64 rows in all,
+    E = 512 and 768, biases in fp32 and in bf16, and attention_with_out in
+    its prefix form (images changing inside a group, G = 1, Sq = 1, two
+    passes over the heads at E = 768, two heads a 64-column chunk at D =
+    32)."""
     return [
         attn_case("prefix, N=801 G=3 (images change mid-block)", 801, 16, 24,
                   8, 64, True, "edge", dtype, gen, P=8, G=3),
@@ -685,15 +719,34 @@ def edge_cases(dtype, gen) -> List[Case]:
                       lens_mode=None),
         with_out_case("Sq=1", 9, 1, 24, 8, 64, 512, dtype, gen, causal=False,
                       lens_mode="edge"),
-        with_out_case("N=300 Sq=8 Sk=12 (two K/V buffers)", 300, 8, 12, 8, 64,
-                      512, dtype, gen, lens_mode="edge"),
+        with_out_case("N=300 Sq=8 Sk=12 (8 rows n a group)", 300, 8, 12, 8,
+                      64, 512, dtype, gen, lens_mode="edge"),
         with_out_case("Sq=40 Sk=77", 3, 40, 77, 2, 32, 64, dtype, gen,
                       lens_mode="edge"),
-        with_out_case("Sq=100 Sk=128", 2, 100, 128, 2, 16, 48, dtype, gen),
+        with_out_case("Sq=100 Sk=128 (scalar side: over 64 query rows)", 2,
+                      100, 128, 2, 16, 48, dtype, gen),
         with_out_case("D=16 (tensor-core side)", 5, 16, 24, 2, 16, 48, dtype,
                       gen, lens_mode="edge"),
         with_out_case("D=24 (scalar side)", 5, 16, 24, 2, 24, 40, dtype, gen,
                       lens_mode="edge"),
+        with_out_case("prefix, N=801 G=3 (rows no multiple of 64)", 801, 16,
+                      24, 8, 64, 512, dtype, gen, lens_mode="edge", P=8, G=3),
+        with_out_case("prefix, N=3 (48 query rows, under 64)", 3, 16, 24, 8,
+                      64, 512, dtype, gen, P=8, G=3),
+        with_out_case("prefix, G=1, lens 0..P", 20, 16, 24, 8, 64, 512, dtype,
+                      gen, lens_mode="short", P=8, G=1),
+        with_out_case("prefix, Sq=1, not causal", 40, 1, 24, 8, 64, 512,
+                      dtype, gen, causal=False, lens_mode="edge", P=8, G=5),
+        with_out_case("prefix, E=768 (two passes over the heads)", 50, 16, 24,
+                      8, 64, 768, dtype, gen, lens_mode="edge", P=8, G=25),
+        with_out_case("prefix, bo fp32", 100, 16, 24, 8, 64, 512, dtype, gen,
+                      P=8, G=25, bias_dtype=torch.float32),
+        with_out_case("prefix, bo bf16", 100, 16, 24, 8, 64, 512, dtype, gen,
+                      P=8, G=25, bias_dtype=torch.bfloat16),
+        with_out_case("prefix, D=32 P=20 Sq=Ss=30", 6, 30, 50, 4, 32, 128,
+                      dtype, gen, lens_mode="edge", P=20, G=2),
+        with_out_case("prefix, D=24 (scalar side)", 6, 16, 20, 2, 24, 40,
+                      dtype, gen, lens_mode="edge", P=4, G=3),
         block_case("N=7, lens 0..S", 7, 15, 768, 12, False, "edge", dtype,
                    gen),
         block_case("causal, N=7, lens 0..S", 7, 15, 768, 12, True, "edge",
@@ -706,6 +759,16 @@ def edge_cases(dtype, gen) -> List[Case]:
                    dtype, gen),
         block_case("D=24 (scalar side)", 5, 15, 96, 4, False, "edge", dtype,
                    gen),
+        block_case("N=3 (45 rows, under 64)", 3, 15, 768, 12, False, "edge",
+                   dtype, gen),
+        block_case("E=512 S=24 causal, N=23", 23, 24, 512, 8, True, "edge",
+                   dtype, gen),
+        block_case("S=50, N=5, lens 0..S", 5, 50, 768, 12, False, "edge",
+                   dtype, gen),
+        block_case("biases fp32", 9, 15, 768, 12, False, None, dtype, gen,
+                   bias_dtype=torch.float32),
+        block_case("biases bf16", 9, 15, 768, 12, False, None, dtype, gen,
+                   bias_dtype=torch.bfloat16),
     ]
 
 
@@ -775,6 +838,26 @@ def sweep_masked_attention(shape, n_seeds: int) -> dict:
     return dict(calls=n, over_ulp=over_ulp, worst_ulp=worst, share=share)
 
 
+# the kernels whose wrappers encode TMA maps on the host at every call
+HOST_TIMED = ("attention_with_out", "attention_block")
+HOST_CALLS = 200
+
+
+def host_us(fn: Callable[[], object], calls: int = HOST_CALLS) -> float:
+    """Mean wall time of one call of ``fn`` over ``calls`` calls made
+    without a synchronisation (after a warm-up): what the host spends to
+    check, encode and enqueue a launch, while the card runs the earlier
+    ones."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
 def phase_kernels(shape) -> dict:
     """Returns, per kernel, the numbers of its dominant bf16 case."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -797,6 +880,11 @@ def phase_kernels(shape) -> dict:
                 + f" bound_ms={bound_ms:.4f} ({bound_by})")
             if not ok:
                 failures.append(f"{case.kernel} [{case.label}, {dt}]")
+            if dtype == torch.bfloat16 and case.kernel in HOST_TIMED:
+                say(f"host {case.kernel} [{case.label}, {dt}]: "
+                    f"{host_us(case.kernel_fn):.2f} us a call ({HOST_CALLS} "
+                    f"calls, no sync) against {ms * 1e3:.2f} us of device "
+                    f"time (CUDA graph)")
             if dtype == torch.bfloat16 and case.kernel not in summary:
                 summary[case.kernel] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -3015,17 +3103,37 @@ pixels = np.random.RandomState(0).rand(
     cs.MAIN["batch"], v.image_size, v.image_size,
     v.num_channels).astype(np.float32)
 if what == "kernels":
+    import time
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
         for case in cs.main_path_cases(shape, dtype, gen):
-            print(f"kernel {case.kernel} [{case.label}, {dtype}] "
-                  f"ms={cs.time_ms(case.kernel_fn, 50):.5f}", flush=True)
-    # the fused kernels' outputs on inputs made alike in every tree (one
-    # fresh generator a case; the constructors' signatures since the two
-    # kernels moved to the tensor cores), to show them unchanged bit for
-    # bit
+            line = (f"kernel {case.kernel} [{case.label}, {dtype}] "
+                    f"ms={cs.time_ms(case.kernel_fn, 50):.5f}")
+            if dtype == torch.bfloat16 and case.kernel in (
+                    "attention_with_out", "attention_block"):
+                # the wrapper's host time a call: 200 calls, no sync
+                case.kernel_fn()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(200):
+                    case.kernel_fn()
+                line += f" host_us={(time.perf_counter() - t) / 200 * 1e6:.2f}"
+                torch.cuda.synchronize()
+            print(line, flush=True)
+    # the attention kernels' outputs on inputs made alike in every tree
+    # (one fresh generator a case; the constructors' signatures since the
+    # two fused kernels moved to the tensor cores), to show which of them
+    # are unchanged bit for bit
     for dtype in (torch.bfloat16, torch.float32):
         for make, before, after in (
+                ("attn_case", ("text suffix chunk", 800, 16, 24, 8, 64, True,
+                               "reach"), (8, 25)),
+                ("attn_case", ("prefix, N=801 G=3", 801, 16, 24, 8, 64, True,
+                               "edge"), (8, 3)),
+                ("attn_case", ("bert full rows", 32, 15, 15, 12, 64, False,
+                               "reach"), ()),
+                ("attn_case", ("S=100 causal", 2, 100, 100, 2, 64, True,
+                               "edge"), ()),
                 ("with_out_case", ("text suffix chunk", 800, 16, 24, 8, 64,
                                    512), (True, "reach")),
                 ("with_out_case", ("N=7, lens 0..Sk", 7, 16, 24, 8, 64, 512),

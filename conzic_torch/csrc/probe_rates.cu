@@ -1,16 +1,28 @@
-// Two rates of the card that the tensor-core kernels' designs rest on,
+// The rates of the card that the tensor-core kernels' designs rest on,
 // measured with nothing else going on (a program of its own, built and run
 // by conzic_torch/kernels/probe.py; no kernel of the port includes it):
 //   1. how often a warp can start an mma.sync.m16n8k16 (bf16, fp32 sums), with
-//      1, 4, 8 and 16 warps on an SM;
+//      1, 4, 8 and 16 warps on an SM (the attention's softmax core);
 //   2. how many bytes a clock an SM takes in from L2 through a ring of
-//      cp.async stages as attention_mma.cuh builds it (256 threads, 16 bytes
-//      a copy, rows of 128 bytes padded to 144 in shared memory), with every
-//      SM copying at once, and no product to wait for.
+//      cp.async stages (256 threads, 16 bytes a copy, rows of 128 bytes
+//      padded to 144 in shared memory), with every SM copying at once, and
+//      no product to wait for (masked_attention.cu's copies);
+//   3. how often a warpgroup can start a wgmma.m64n192k16 and a
+//      wgmma.m64n256k16 (bf16, fp32 sums, both operands from shared memory,
+//      hopper_gemm.cuh), one and two warpgroups on an SM (the two fused
+//      kernels' projections);
+//   4. how many bytes a clock an SM takes in from L2 through a ring of TMA
+//      loads of 32 KB boxes (256 rows x 128 bytes, 128-byte swizzle, four
+//      stages, one producer thread, mbarriers), every SM at once: alone,
+//      and in clusters of two blocks where each block loads half of every
+//      box and multicasts it to both (L2 then serves each byte once for two
+//      SMs).
 #include <cstdint>
 #include <cstdio>
 
 #include <cuda_runtime.h>
+
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -103,6 +115,171 @@ void run_copy(const char* g, size_t g_bytes, int sms, int rows,
          sms);
 }
 
+namespace hp = conzic::hopper;
+
+// 3. wgmma: kIters groups of four k16 steps on one accumulator, two groups
+// in flight, on a 64 x 64 A tile and a kN x 64 B tile of zeros.
+template <int kN>
+__global__ void __launch_bounds__(256, 1)
+    wgmma_rate(float* out, long long* clocks, int iters) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* base = raw + ((1024 - (hp::smem_u32(raw) & 1023)) & 1023);
+  for (int i = threadIdx.x; i < (64 + kN) * 32; i += blockDim.x)
+    reinterpret_cast<uint32_t*>(base)[i] = 0u;
+  __syncthreads();
+  hp::fence_async_shared();
+  float acc[kN / 2];
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+  const uint64_t a = hp::tile_desc(base);
+  const uint64_t b = hp::tile_desc(base + 64 * hp::kRowBytes);
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+    hp::hold(acc);
+    hp::wgmma_tile<kN>(acc, a, b, true);
+    hp::wgmma_wait<1>();
+    hp::hold(acc);
+  }
+  hp::wgmma_wait<0>();
+  hp::hold(acc);
+  const long long t1 = clock64();
+  float s = 0.f;
+  for (int i = 0; i < kN / 2; ++i) s += acc[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+  if (threadIdx.x == 0 && blockIdx.x == 0) clocks[0] = t1 - t0;
+}
+
+template <int kN>
+void run_wgmma(int sms, float* out, long long* clocks) {
+  const int iters = 2000;
+  const int smem = 1024 + (64 + kN) * hp::kRowBytes;
+  cudaFuncSetAttribute(wgmma_rate<kN>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  for (int groups : {1, 2}) {
+    wgmma_rate<kN><<<sms, 128 * groups, smem>>>(out, clocks, iters);
+    long long h = 0;
+    cudaMemcpy(&h, clocks, sizeof(h), cudaMemcpyDeviceToHost);
+    const double per = h / (iters * 4.0);  // clocks a wgmma, one group's
+    printf("wgmma m64n%dk16, %d warpgroup(s) an SM: %.1f clocks a wgmma a "
+           "warpgroup, %.0f dense FLOP a clock an SM\n",
+           kN, groups, per, 2.0 * 64 * kN * 16 * groups / per);
+  }
+}
+
+// 4. TMA ring: a producer thread and a consumer warp a block; the consumer
+// frees each stage as soon as it has landed. kCluster blocks of a cluster
+// each load 256 / kCluster rows of every box and multicast them to all.
+constexpr int kRingStages = 4;
+constexpr int kBoxRows = 256;
+constexpr int kBoxBytes = kBoxRows * hp::kRowBytes;
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+template <int kCluster>
+__global__ void __launch_bounds__(64, 1)
+    tma_rate(const __grid_constant__ CUtensorMap map, int steps,
+             long long* clocks) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* base = raw + ((1024 - (hp::smem_u32(raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);
+  uint64_t* empty = full + kRingStages;
+  unsigned char* ring = base + 1024;
+  uint32_t rank = 0;
+  if (kCluster > 1) asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRingStages; ++i) {
+      hp::bar_init(&full[i], 1);
+      hp::bar_init(&empty[i], kCluster);
+    }
+    hp::fence_barrier_init();
+  }
+  if (kCluster > 1) cluster_sync(); else __syncthreads();
+  const int cluster = blockIdx.x / kCluster;
+  constexpr int kPart = kBoxRows / kCluster;
+  if (threadIdx.x == 0) {  // the producer
+    int st = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < steps; ++t) {
+      hp::bar_wait(&empty[st], phase ^ 1);
+      hp::bar_expect(&full[st], kBoxBytes);
+      const int col = (cluster * 7 + t) % 16 * 64;
+      const int row = (cluster * 3 + t) % 16 * kBoxRows + rank * kPart;
+      unsigned char* dst = ring + st * kBoxBytes + rank * kPart * hp::kRowBytes;
+      if (kCluster == 1) {
+        hp::tma_load(dst, &map, &full[st], col, row);
+      } else {
+        const uint16_t mask = (1u << kCluster) - 1;
+        asm volatile(
+            "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+            "complete_tx::bytes.multicast::cluster [%0], [%1, {%3, %4}], "
+            "[%2], %5;\n" ::"r"(hp::smem_u32(dst)),
+            "l"(reinterpret_cast<uint64_t>(&map)),
+            "r"(hp::smem_u32(&full[st])), "r"(col), "r"(row), "h"(mask)
+            : "memory");
+      }
+      if (++st == kRingStages) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+  } else if (threadIdx.x == 32) {  // the consumer: frees what has landed
+    int st = 0;
+    uint32_t phase = 0;
+    const long long t0 = clock64();
+    for (int t = 0; t < steps; ++t) {
+      hp::bar_wait(&full[st], phase);
+      for (uint32_t peer = 0; peer < kCluster; ++peer) {
+        // this block's and every other block's producer wait for it
+        uint32_t remote;
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                     : "=r"(remote)
+                     : "r"(hp::smem_u32(&empty[st])), "r"(peer));
+        asm volatile(
+            "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+            ::"r"(remote) : "memory");
+      }
+      if (++st == kRingStages) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+    const long long t1 = clock64();
+    if (blockIdx.x == 0) clocks[0] = t1 - t0;
+  }
+  if (kCluster > 1) cluster_sync();
+}
+
+template <int kCluster>
+void run_tma(const CUtensorMap& map, int sms, long long* clocks) {
+  const int steps = 2000;
+  const int smem = 1024 + 1024 + kRingStages * kBoxBytes;
+  auto* kernel = tma_rate<kCluster>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(sms / kCluster * kCluster);
+  cfg.blockDim = dim3(64);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, map, steps, clocks);
+  long long h = 0;
+  cudaMemcpy(&h, clocks, sizeof(h), cudaMemcpyDeviceToHost);
+  const double in = static_cast<double>(kBoxBytes) * steps / h;
+  printf("tma ring of %d x 32 KB, %s: %.1f bytes a clock into an SM, %.1f "
+         "from L2 an SM (%s)\n",
+         kRingStages,
+         kCluster == 1 ? "each block alone" : "2-block multicast", in,
+         in / kCluster, cudaGetErrorString(e));
+}
+
 }  // namespace
 
 int main() {
@@ -131,6 +308,20 @@ int main() {
     run_copy<3>(g, g_bytes, sms, rows, clocks);
     run_copy<6>(g, g_bytes, sms, rows, clocks);
   }
+  run_wgmma<192>(sms, out, clocks);
+  run_wgmma<256>(sms, out, clocks);
+  // the 8 MB buffer as a (4096, 1024) bf16 matrix, read in boxes of 256
+  // rows, or of 128 where two blocks share each box
+  CUtensorMap whole, half;
+  cudaError_t me = hp::tensor_map(&whole, g, 4096, 1024, 1024, kBoxRows);
+  if (me == cudaSuccess)
+    me = hp::tensor_map(&half, g, 4096, 1024, 1024, kBoxRows / 2);
+  if (me != cudaSuccess) {
+    printf("tensor map: %s\n", cudaGetErrorString(me));
+    return 1;
+  }
+  run_tma<1>(whole, sms, clocks);
+  run_tma<2>(half, sms, clocks);
   const cudaError_t e = cudaDeviceSynchronize();
   printf("%s\n", cudaGetErrorString(e));
   return e == cudaSuccess ? 0 : 1;

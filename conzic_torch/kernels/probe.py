@@ -1,6 +1,8 @@
-"""Build and run ``csrc/probe_rates.cu``: the card's own rates for the two
-things the tensor-core kernels wait on, an ``mma.sync`` and a ``cp.async``
-ring fed from L2, each measured alone.
+"""Build and run ``csrc/probe_rates.cu``: the card's own rates for what the
+tensor-core kernels wait on, each measured alone: an ``mma.sync`` and a
+``cp.async`` ring fed from L2 (the attention cores), a ``wgmma`` m64n192k16
+and m64n256k16 and a TMA ring fed from L2, with and without a 2-block
+multicast (the fused kernels' projections).
 
     python3 -m conzic_torch.kernels.probe
 

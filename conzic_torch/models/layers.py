@@ -103,9 +103,9 @@ class LayerNorm(nn.Module):
 class MultiHeadAttention(nn.Module):
     """MHA with bias on all projections. ``prefix_kv``: per-image prefix
     K/V (B, P, H, D) shared by the N = B*G rows of ``x``, put before each
-    row's own keys: the masked-attention kernel reads it at image width
-    (its prefix form); it is broadcast and concatenated only for the
-    attention-with-output kernel, the XLA routes and ``return_kv``.
+    row's own keys: the masked-attention and attention-with-output kernels
+    read it at image width (their prefix form); it is broadcast and
+    concatenated only for the XLA routes and ``return_kv``.
     ``x_kv``: keys/values come from it while queries come from ``x`` (the
     pooled final layer).
 
@@ -165,7 +165,7 @@ class MultiHeadAttention(nn.Module):
         xla = impl in XLA_IMPLS
         if prefix_kv is not None:
             prefix_kv = tuple(t.to(dt).contiguous() for t in prefix_kv)
-            if with_out or return_kv or (xla and not two_block):
+            if return_kv or (xla and not two_block):
                 k, v = with_prefix(k, v, prefix_kv)
                 prefix_kv = None
         if with_out:
@@ -174,7 +174,7 @@ class MultiHeadAttention(nn.Module):
             y = attention_with_out(
                 q.contiguous(), k.contiguous(), v.contiguous(),
                 self.out.weight.to(q.dtype), self.out.bias, mask.lens,
-                mask.causal)
+                mask.causal, prefix_kv)
             return y if residual is None else y + residual
         if two_block:
             Sk = prefix_kv[0].shape[1] + k.shape[1]
