@@ -21,6 +21,11 @@ environment variables). Every process lists the directory alike and
 decodes its contiguous block of each batch (``row_slice``); the results
 are gathered and process 0 writes the tree. Each process runs on
 ``cuda:{local rank % cards}``.
+
+``CONZIC_TRACE_DIR=DIR`` profiles the captioning and writes one Chrome
+trace into DIR: the program's ``conzic.`` spans (``runtime/profiling.py``)
+on every thread beside the card's kernels, and its counters in the
+trace's metadata.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ from conzic_torch.runtime.logging import (
     run_type_label,
 )
 from conzic_torch.runtime.prefetch import prefetch_map
-from conzic_torch.runtime.profiling import annotate
+from conzic_torch.runtime import profiling
 from conzic_torch.runtime.seeding import set_seed
 
 
@@ -97,10 +102,10 @@ def iter_image_batches(dir_path: str, batch_size: int, logger,
 
 
 def host_pipeline(batch, image_size: int):
-    """Decoded images -> (NHWC pixels, names), annotated so that a
+    """Decoded images -> (NHWC pixels, names), in a span so that a
     ``CONZIC_TRACE_DIR`` trace shows the host stage beside the card's."""
     imgs, names = batch
-    with annotate("host:preprocess"):
+    with profiling.span("entry.preprocess"):
         return preprocess_batch_pil(imgs, image_size), names
 
 
@@ -217,13 +222,14 @@ def main(argv=None):
     row_slice = (distributed.local_slice(cfg.batch_size) if multihost
                  else None)
     image_size = captioner.clip_model.config.vision.image_size
-    caption_batches(
-        cfg, captioner,
-        lambda: iter_image_batches(cfg.caption_img_path, cfg.batch_size,
-                                   logger, row_slice=row_slice,
-                                   image_size=image_size),
-        logger, rng, workers=args.prefetch_workers,
-        local=row_slice is not None)
+    with profiling.trace():
+        caption_batches(
+            cfg, captioner,
+            lambda: iter_image_batches(cfg.caption_img_path, cfg.batch_size,
+                                       logger, row_slice=row_slice,
+                                       image_size=image_size),
+            logger, rng, workers=args.prefetch_workers,
+            local=row_slice is not None)
     if multihost:
         distributed.shutdown()
 

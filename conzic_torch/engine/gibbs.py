@@ -46,6 +46,7 @@ from conzic_torch.eval.pos_eval import batch_texts_pos_analysis
 from conzic_torch.eval.sentiment_eval import batch_texts_sentiment_scores
 from conzic_torch.models.bert import BertForMaskedLM
 from conzic_torch.models.clip import CLIPModel, TruncatedTextTower
+from conzic_torch.runtime.profiling import span
 from conzic_torch.text.bridge import (
     assemble_clip_ids,
     assemble_clip_ids_substitute,
@@ -214,10 +215,11 @@ def _encode_candidates(spec: EngineSpec, clip: CLIPModel,
         W = 0  # no narrower than the width, wider than the prefix
 
     def enc(ids_bk, mask_bk):
-        # the reference's lax.cond: one read of the chunk's fit a chunk
-        if W and not bool(mask_bk[:, :, W:].any()):
-            return encode(ids_bk[:, :, :W], mask_bk[:, :, :W])
-        return encode(ids_bk, mask_bk)
+        with span("towers.text_chunk"):
+            # the reference's lax.cond: one read of the chunk's fit a chunk
+            if W and not bool(mask_bk[:, :, W:].any()):
+                return encode(ids_bk[:, :, :W], mask_bk[:, :, :W])
+            return encode(ids_bk, mask_bk)
 
     kc = row_chunk_width(B, k, spec.clip_row_chunk)
     embs = [enc(clip_ids[:, c:c + kc], clip_mask[:, c:c + kc])
@@ -329,9 +331,6 @@ def _position_update(spec: EngineSpec, clip: CLIPModel,
     B = base_ids.shape[0]
     k = spec.candidate_k
     col = spec.seed_len + pos  # (B,)
-    probs = energies.masked_lm_probs(logits, token_mask, hyper["temperature"])
-    top_probs, idxs = energies.topk_candidates(
-        probs, token_mask, k, chunk=spec.topk_chunk, banned_ids=banned)
 
     def assemble(idxs_k):
         """(B, k') candidates -> (CLIP ids, mask, prefix bound)."""
@@ -346,48 +345,54 @@ def _position_update(spec: EngineSpec, clip: CLIPModel,
             bos_id=spec.clip_bos_id, eos_id=spec.clip_eos_id,
             pad_id=spec.clip_pad_id, clip_len=spec.clip_len), prefix_len)
 
-    assembled = None
-    if spec.prune_k is not None and spec.prune_k < k:
-        idxs, top_probs, assembled = _prune(
-            spec, clip, tables, hyper, image_embeds, base_ids, col, idxs,
-            top_probs, assemble, prefix_kvs)
-        k = spec.prune_k
-    cand = inner = None
-    if spec.ctl is not None:
-        # (B, k, S) candidate rows and their caption span (no CLS / SEP)
-        cand = _cand_rows(base_ids, col, idxs)
-        inner = cand[:, :, 1:spec.seq_len - 1]
-    clip_ids, clip_mask, prefix_len = assembled or assemble(idxs)
+    with span("engine.candidates"):
+        probs = energies.masked_lm_probs(logits, token_mask,
+                                         hyper["temperature"])
+        top_probs, idxs = energies.topk_candidates(
+            probs, token_mask, k, chunk=spec.topk_chunk, banned_ids=banned)
+        assembled = None
+        if spec.prune_k is not None and spec.prune_k < k:
+            idxs, top_probs, assembled = _prune(
+                spec, clip, tables, hyper, image_embeds, base_ids, col, idxs,
+                top_probs, assemble, prefix_kvs)
+            k = spec.prune_k
+        cand = inner = None
+        if spec.ctl is not None:
+            # (B, k, S) candidate rows and their caption span (no CLS / SEP)
+            cand = _cand_rows(base_ids, col, idxs)
+            inner = cand[:, :, 1:spec.seq_len - 1]
+        clip_ids, clip_mask, prefix_len = assembled or assemble(idxs)
     text_embeds = _encode_candidates(spec, clip, clip_ids, clip_mask,
                                      prefix_len, prefix_kvs)
-    clip_probs, cosine = clip.similarity(image_embeds, text_embeds)
+    with span("engine.commit"):
+        clip_probs, cosine = clip.similarity(image_embeds, text_embeds)
 
-    ctl_probs = penalty = None
-    ctl_score = torch.zeros((B, k), device=cosine.device)
-    if spec.ctl is not None and spec.ctl_mode == "exact":
-        ctl_score = host.ctl(inner)
-    elif spec.ctl == "sentiment":
-        ctl_score = energies.sentiment_scores(cand, tables["senti"],
-                                              negative=spec.negative)
-    elif spec.ctl == "pos":
-        word_valid = (tables["bridge_lens"][inner] > 0).int()
-        ctl_score = energies.pos_accuracy(inner, tables["pos"],
-                                          tables["template"], word_valid)
-    if spec.ctl == "sentiment":
-        ctl_probs = energies.sentiment_probs(ctl_score)
-        penalty = energies.repeat_penalty(idxs, cand)
-    elif spec.ctl == "pos":
-        ctl_probs = energies.pos_probs(ctl_score)
-    final = energies.combine_scores(
-        top_probs, clip_probs, hyper["alpha"], hyper["beta"],
-        ctl_probs=ctl_probs, gamma=hyper["gamma"], penalty=penalty)
-    sel = torch.argmax(final, dim=1)[:, None]  # (B, 1)
-    chosen = torch.gather(idxs, 1, sel)[:, 0]
-    rows = torch.arange(B, device=commit_ids.device)
-    new_ids = commit_ids.clone()
-    new_ids[rows, col] = chosen.to(commit_ids.dtype)
-    return (new_ids, torch.gather(cosine, 1, sel)[:, 0],
-            torch.gather(ctl_score, 1, sel)[:, 0])
+        ctl_probs = penalty = None
+        ctl_score = torch.zeros((B, k), device=cosine.device)
+        if spec.ctl is not None and spec.ctl_mode == "exact":
+            ctl_score = host.ctl(inner)
+        elif spec.ctl == "sentiment":
+            ctl_score = energies.sentiment_scores(cand, tables["senti"],
+                                                  negative=spec.negative)
+        elif spec.ctl == "pos":
+            word_valid = (tables["bridge_lens"][inner] > 0).int()
+            ctl_score = energies.pos_accuracy(inner, tables["pos"],
+                                              tables["template"], word_valid)
+        if spec.ctl == "sentiment":
+            ctl_probs = energies.sentiment_probs(ctl_score)
+            penalty = energies.repeat_penalty(idxs, cand)
+        elif spec.ctl == "pos":
+            ctl_probs = energies.pos_probs(ctl_score)
+        final = energies.combine_scores(
+            top_probs, clip_probs, hyper["alpha"], hyper["beta"],
+            ctl_probs=ctl_probs, gamma=hyper["gamma"], penalty=penalty)
+        sel = torch.argmax(final, dim=1)[:, None]  # (B, 1)
+        chosen = torch.gather(idxs, 1, sel)[:, 0]
+        rows = torch.arange(B, device=commit_ids.device)
+        new_ids = commit_ids.clone()
+        new_ids[rows, col] = chosen.to(commit_ids.dtype)
+        return (new_ids, torch.gather(cosine, 1, sel)[:, 0],
+                torch.gather(ctl_score, 1, sel)[:, 0])
 
 
 def _fresh_logits(spec: EngineSpec, bert: BertForMaskedLM, ids: torch.Tensor,
@@ -461,9 +466,12 @@ def _iteration(spec: EngineSpec, bert: BertForMaskedLM, clip: CLIPModel,
         step = 0
         for P, n in chunks:
             for pos in row[step:step + n]:
-                masked, logits = _fresh_logits(spec, bert, ids, pos)
-                ids, cos, ctl = update(masked, masked, pos, logits,
-                                       _token_mask_for(spec, tables, pos), P)
+                with span("engine.step"):
+                    with span("towers.lm"):
+                        masked, logits = _fresh_logits(spec, bert, ids, pos)
+                    ids, cos, ctl = update(
+                        masked, masked, pos, logits,
+                        _token_mask_for(spec, tables, pos), P)
             step += n
         return ids, cos, ctl
 
@@ -479,22 +487,28 @@ def _iteration(spec: EngineSpec, bert: BertForMaskedLM, clip: CLIPModel,
             ids = ids.clone()
             first = spec.seed_len + start
             ids[:, first:first + size] = spec.mask_token_id
-            logits_span = _sentence_logits(spec, bert, ids, start, size)
+            with span("towers.lm"):
+                logits_span = _sentence_logits(spec, bert, ids, start, size)
             for j in range(size):
                 pos = slot(start + j)
-                ids, cos, ctl = update(ids, ids, pos, logits_span[:, j],
-                                       _token_mask_for(spec, tables, pos), P0)
+                with span("engine.step"):
+                    ids, cos, ctl = update(
+                        ids, ids, pos, logits_span[:, j],
+                        _token_mask_for(spec, tables, pos), P0)
         return ids, cos, ctl
 
     if spec.order_kind == "parallel":
         base = ids  # candidates are built from the iteration-start rows
         # one UNMASKED forward, and the last slot's mask ('.' allowed) at
         # every position: the reference never updates the mask here
-        logits_all = _sentence_logits(spec, bert, ids, 0, spec.sentence_len)
+        with span("towers.lm"):
+            logits_all = _sentence_logits(spec, bert, ids, 0,
+                                          spec.sentence_len)
         masks = _mask_last_pair(spec, tables, B)
         for kk in range(spec.sentence_len):
-            ids, cos, ctl = update(base, ids, slot(kk), logits_all[:, kk],
-                                   masks, P0)
+            with span("engine.step"):
+                ids, cos, ctl = update(base, ids, slot(kk),
+                                       logits_all[:, kk], masks, P0)
         return ids, cos, ctl
 
     raise ValueError(f"unknown order kind {spec.order_kind!r}")
@@ -522,12 +536,13 @@ def run_generation(spec: EngineSpec, bert: BertForMaskedLM, clip: CLIPModel,
             and 2 <= chunks[0][0] < spec.clip_len - 1
             and not spec.exact_bridge):
         P0 = chunks[0][0]
-        pref_row, _ = assemble_clip_ids(
-            init_ids[:, 1:spec.seq_len - 1], tables["bridge_ids"],
-            tables["bridge_lens"], bos_id=spec.clip_bos_id,
-            eos_id=spec.clip_eos_id, pad_id=spec.clip_pad_id,
-            clip_len=spec.clip_len)
-        prefix_kvs = clip.text_prefix_kvs(pref_row[:, :P0])
+        with span("engine.prefix_kv"):
+            pref_row, _ = assemble_clip_ids(
+                init_ids[:, 1:spec.seq_len - 1], tables["bridge_ids"],
+                tables["bridge_lens"], bos_id=spec.clip_bos_id,
+                eos_id=spec.clip_eos_id, pad_id=spec.clip_pad_id,
+                clip_len=spec.clip_len)
+            prefix_kvs = clip.text_prefix_kvs(pref_row[:, :P0])
     B = init_ids.shape[0]
     ids = init_ids
     best_ids = init_ids
@@ -541,9 +556,10 @@ def run_generation(spec: EngineSpec, bert: BertForMaskedLM, clip: CLIPModel,
     if spec.final_exact and spec.prune_k is not None:
         last_spec = dataclasses.replace(spec, prune_k=None, final_exact=False)
     for i, row in enumerate(rows):
-        ids, cos, ctl = _iteration(
-            last_spec if i == len(rows) - 1 else spec, bert, clip, tables,
-            hyper, image_embeds, ids, row, prefix_kvs, host)
+        with span("engine.iteration"):
+            ids, cos, ctl = _iteration(
+                last_spec if i == len(rows) - 1 else spec, bert, clip,
+                tables, hyper, image_embeds, ids, row, prefix_kvs, host)
         improved = best_cos < cos
         best_cos = torch.where(improved, cos, best_cos)
         best_ids = torch.where(improved[:, None], ids, best_ids)

@@ -84,6 +84,7 @@ from conzic_torch.parallel.mesh import (
 )
 from conzic_torch.parallel.vocab import cuts, split_vocab
 from conzic_torch.runtime.image import preprocess_batch_pil
+from conzic_torch.runtime.profiling import request_span, span
 from conzic_torch.text.bpe import CLIPBPETokenizer
 from conzic_torch.text.bridge import build_bridge_table
 from conzic_torch.text.lexicons import (
@@ -426,7 +427,7 @@ class Captioner:
             pixels = torch.tensor(np.asarray(pixels, np.float32))
         if pixels.dim() == 3:
             pixels = pixels[None]
-        with torch.inference_mode():
+        with torch.inference_mode(), request_span("entry.encode_images"):
             emb = self.clip_model.encode_image(pixels.to(self.device))
         if local and distributed.process_count() > 1:
             global_b = emb.shape[0] * distributed.process_count()
@@ -783,6 +784,7 @@ class Captioner:
         if self.cfg.mask_impl == "compare":
             self._ensure_banned_tables()
 
+    @request_span("engine.generate")
     def run(self, image_embeds, *, prompt: str, max_len: int, top_k: int,
             temperature: float, max_iter: int, alpha: float, beta: float,
             gamma: float = 0.0, order: str = "sequential",
@@ -906,7 +908,9 @@ class Captioner:
                     hyper, embeds[j], ids[j],
                     pos[0][j].movedim(0, 2) if by_pos else positions,
                     span_sizes, host)
-                return {k: getattr(gen, k).cpu().numpy() for k in _BATCH_AXIS}
+                with span("engine.fetch"):
+                    return {k: getattr(gen, k).cpu().numpy()
+                            for k in _BATCH_AXIS}
 
         if len(devices) == 1:
             outs = [block(0)]
@@ -928,11 +932,13 @@ class Captioner:
         best_ids = out["best_ids"].astype(np.int32)
         iter_cos, iter_ctl = out["iter_cos"], out["iter_ctl"]
         best_cos = out["best_cos"]
-        gen_texts_list = [self.wp.batch_decode(ids, skip_special_tokens=True)
-                          for ids in iter_ids]
+        with span("engine.decode"):
+            gen_texts_list = [
+                self.wp.batch_decode(ids, skip_special_tokens=True)
+                for ids in iter_ids]
+            decoded_best = self.wp.batch_decode(best_ids,
+                                                skip_special_tokens=True)
         clip_score_sequence = [[float(c) for c in cos] for cos in iter_cos]
-        decoded_best = self.wp.batch_decode(best_ids,
-                                            skip_special_tokens=True)
         # "None" where the best never rose above the 0-initialised tracker
         gen_texts_list.append([
             decoded_best[b] if best_cos[b] > 0 else "None"

@@ -21,6 +21,7 @@ from conzic_torch.models.layers import (
     LayerNorm,
     Linear,
     TransformerStack,
+    cast_param,
 )
 from conzic_torch.ops.attention import make_attn_mask
 
@@ -45,13 +46,14 @@ class BertEmbeddings(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         x = (self.word_rows(input_ids)
-             + F.embedding(positions, self.position.to(dt))[None]
-             + F.embedding(token_type_ids, self.token_type.to(dt)))
+             + F.embedding(positions, cast_param(self.position, dt))[None]
+             + F.embedding(token_type_ids,
+                           cast_param(self.token_type, dt)))
         return self.ln(x)
 
     def word_rows(self, input_ids: torch.Tensor) -> torch.Tensor:
         """The word table's rows of ``input_ids``, in the compute type."""
-        return F.embedding(input_ids, self.word.to(self.dtype))
+        return F.embedding(input_ids, cast_param(self.word, self.dtype))
 
 
 class BertMlmHead(nn.Module):
@@ -79,7 +81,7 @@ class BertMlmHead(nn.Module):
         # bf16 before the T=0.1 softmax would create extra ties. The
         # operands' values are exact in fp32, so the fp32 product equals
         # a bf16 product with fp32 accumulation and output.
-        w = word_embedding.to(self.dtype).float()
+        w = cast_param(word_embedding, self.dtype).float()
         return F.linear(h.float(), w) + self.bias.float()
 
 

@@ -21,7 +21,12 @@ from conzic_torch.models.configs import (
     CLIPTextConfig,
     CLIPVisionConfig,
 )
-from conzic_torch.models.layers import LayerNorm, Linear, TransformerStack
+from conzic_torch.models.layers import (
+    LayerNorm,
+    Linear,
+    TransformerStack,
+    cast_param,
+)
 from conzic_torch.ops.attention import make_attn_mask
 
 
@@ -69,14 +74,14 @@ class CLIPTextTower(nn.Module):
         LayerNorm and the pool, as a tower of that many layers would."""
         cfg, dt = self.config, self.dtype
         S = input_ids.shape[1]
-        x = F.embedding(input_ids, self.token_embedding.to(dt))
+        x = F.embedding(input_ids, cast_param(self.token_embedding, dt))
         pos = self.position_embedding
         if pos_offset + S > cfg.max_position_embeddings:
             # rows past the table are zeros; they belong to masked-off PAD
             # columns only and never reach the first-EOS row
             pos = F.pad(pos, (0, 0, 0,
                               pos_offset + S - cfg.max_position_embeddings))
-        x = x + pos[pos_offset:pos_offset + S].to(dt)[None]
+        x = x + cast_param(pos[pos_offset:pos_offset + S], dt)[None]
         P = prefix_kvs[0][0].shape[1] if prefix_kvs is not None else 0
         mask = make_attn_mask(attention_mask, causal=True, offset=P)
         is_eos = (input_ids == cfg.eos_token_id).to(torch.int32)
@@ -140,12 +145,13 @@ class CLIPVisionTower(nn.Module):
         cfg, dt = self.config, self.dtype
         B = pixel_values.shape[0]
         px = pixel_values.to(dt).permute(0, 3, 1, 2)
-        patches = F.conv2d(px, self.patch_embedding.to(dt),
+        patches = F.conv2d(px, cast_param(self.patch_embedding, dt),
                            stride=cfg.patch_size)  # (B, E, gh, gw)
         patches = patches.flatten(2).transpose(1, 2)  # (B, gh*gw, E)
-        cls = self.class_embedding.to(dt)[None, None].expand(B, 1, -1)
+        cls = cast_param(self.class_embedding, dt)[None, None].expand(
+            B, 1, -1)
         x = torch.cat([cls, patches], dim=1)
-        x = x + self.position_embedding.to(dt)[None]
+        x = x + cast_param(self.position_embedding, dt)[None]
         x = self.pre_ln(x)
         x = self.encoder(x, make_attn_mask(None))
         return self.post_ln(x[:, 0])

@@ -39,6 +39,16 @@ from conzic_torch.ops.quant import (
     int8_linear,
     quantize_weight,
 )
+from conzic_torch.runtime import profiling
+
+
+def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A parameter (or a slice of one) in the compute type: ``p.to(dtype)``,
+    counted as ``towers.weight_casts`` when the type changes."""
+    if p.dtype == dtype:
+        return p
+    profiling.count(profiling.WEIGHT_CASTS)
+    return p.to(dtype)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -82,8 +92,10 @@ class Linear(nn.Module):
             if self.bias is not None:
                 y = y + self.bias.float()
             return y.to(self.dtype)
-        b = self.bias.to(self.dtype) if self.bias is not None else None
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        b = (cast_param(self.bias, self.dtype) if self.bias is not None
+             else None)
+        return F.linear(x.to(self.dtype), cast_param(self.weight, self.dtype),
+                        b)
 
 
 class LayerNorm(nn.Module):
@@ -148,7 +160,7 @@ class MultiHeadAttention(nn.Module):
             # pooled final layer (x_kv) cannot take it
             lins = (self.query, self.key, self.value, self.out)
             params = [t for lin in lins
-                      for t in (lin.weight.to(dt), lin.bias)]
+                      for t in (cast_param(lin.weight, dt), lin.bias)]
             return attention_block(
                 x.to(dt).contiguous(), residual.to(dt).contiguous(), *params,
                 mask.lens, heads=H, causal=mask.causal)
@@ -173,7 +185,7 @@ class MultiHeadAttention(nn.Module):
             # a pooled layer's (x_kv) are not
             y = attention_with_out(
                 q.contiguous(), k.contiguous(), v.contiguous(),
-                self.out.weight.to(q.dtype), self.out.bias, mask.lens,
+                cast_param(self.out.weight, q.dtype), self.out.bias, mask.lens,
                 mask.causal, prefix_kv)
             return y if residual is None else y + residual
         if two_block:

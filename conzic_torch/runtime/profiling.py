@@ -1,54 +1,106 @@
-"""Tracing and stage timing.
+"""Tracing: spans and counters inside the program, and the trace exporter.
 
 Counterpart of ``conzic_tpu/runtime/profiling.py``:
 
-  - ``StageTimers``: named wall-clock stages accumulated into a report;
-  - ``trace``: ``torch.profiler`` over a block, CPU and (when there is a
-    card) CUDA activity, written as a Chrome trace into ``trace_dir`` or
-    ``$CONZIC_TRACE_DIR``; a no-op when neither is set;
-  - ``annotate``: ``torch.profiler.record_function``, so that host stages
-    show on the trace's timeline beside the device's kernels.
+  - ``request_span`` and ``span``: ``torch.profiler.record_function``
+    ranges named ``conzic.<name>``, which the profiler records on the
+    clock of the card's kernels, so that host stages show on the trace's
+    timeline beside them. They are live only while a profiler records: a
+    request span (the image tower, a generation) looks once whether one
+    does, and for its duration turns on every inner span and counter,
+    which read one module flag. With no profiler the sites cost that flag
+    read; a ``record_function`` with none would cost some 11 us a call.
+  - ``count`` and ``take_counts``: in-memory counters that count only
+    while the spans are live, read and reset by the caller.
+  - ``trace``: ``torch.profiler`` over a block, CPU (every thread) and,
+    when there is a card, CUDA activity, written as a Chrome trace into
+    ``trace_dir`` or ``$CONZIC_TRACE_DIR``; a no-op when neither is set.
+
+The spans of a generation, each under the one before it in time:
+``engine.generate`` > ``engine.prefix_kv``, ``engine.iteration`` >
+``engine.step`` > ``towers.lm``, ``engine.candidates``,
+``towers.text_chunk``, ``engine.commit``; then ``engine.fetch`` and
+``engine.decode``. The span and parallel orders run ``towers.lm`` once a
+span or sweep, beside the steps. ``entry.encode_images`` runs the image
+tower, ``entry.preprocess`` a batch's preprocessing on the command line's
+worker thread. The one counter, ``towers.weight_casts``, counts the
+parameters cast to the compute type on a call (``models/layers.py``
+``cast_param``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from collections import defaultdict
 from typing import Dict, Iterator, Optional
 
 import torch
 
+PREFIX = "conzic."
+WEIGHT_CASTS = "towers.weight_casts"
 
-class StageTimers:
-    """Accumulating named wall-clock timers."""
+_lock = threading.Lock()
+_live = 0  # request spans and traces open while a profiler records
+_on = False  # _live > 0: the inner spans and the counters are live
+_counts: Dict[str, int] = {}
+_OFF = contextlib.nullcontext()
 
-    def __init__(self) -> None:
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def stage(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
+def _hold(delta: int) -> None:
+    global _live, _on
+    with _lock:
+        _live += delta
+        _on = _live > 0
+
+
+@contextlib.contextmanager
+def request_span(name: str) -> Iterator[None]:
+    """The span of a request's stage (``entry.encode_images``,
+    ``engine.generate``): recorded, and the inner spans and counters live
+    inside it, when a profiler records on this thread or ``trace`` made
+    the spans live (a profiler of every thread reads as none here)."""
+    if not (_on or torch.autograd._profiler_enabled()):
+        yield
+        return
+    _hold(1)
+    try:
+        with torch.profiler.record_function(PREFIX + name):
             yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+    finally:
+        _hold(-1)
 
-    def report(self) -> str:
-        lines = ["stage timings:"]
-        for name in sorted(self.totals, key=self.totals.get, reverse=True):
-            lines.append(f"  {name}: {self.totals[name]:.3f}s over "
-                         f"{self.counts[name]} call(s)")
-        return "\n".join(lines)
+
+def span(name: str):
+    """An inner span: recorded when a request span or ``trace`` made the
+    spans live, else a shared no-op context."""
+    if not _on:
+        return _OFF
+    return torch.profiler.record_function(PREFIX + name)
+
+
+def count(name: str) -> None:
+    """Add one to the counter ``name`` while the spans are live. Under a
+    lock: a mesh runs its blocks on threads of one process."""
+    if _on:
+        with _lock:
+            _counts[name] = _counts.get(name, 0) + 1
+
+
+def take_counts() -> Dict[str, int]:
+    """The counters since the last call, which resets them."""
+    with _lock:
+        out = dict(_counts)
+        _counts.clear()
+    return out
 
 
 @contextlib.contextmanager
 def trace(trace_dir: Optional[str] = None) -> Iterator[None]:
-    """Profile the block when a directory is configured; the trace is
-    ``<trace_dir>/trace_<pid>_<time>.json``."""
+    """Profile the block when a directory is configured, with the spans
+    live throughout; the trace is ``<trace_dir>/trace_<pid>_<time>.json``,
+    and the block's counters are in its metadata as ``conzic.<name>``."""
     trace_dir = trace_dir or os.environ.get("CONZIC_TRACE_DIR")
     if not trace_dir:
         yield
@@ -59,13 +111,17 @@ def trace(trace_dir: Optional[str] = None) -> Iterator[None]:
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
+    # every thread: the command line preprocesses on a worker thread
+    all_threads = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
+    with profile(activities=activities,
+                 experimental_config=all_threads) as prof:
+        _hold(1)
+        try:
+            yield
+        finally:
+            _hold(-1)
+            for name, n in take_counts().items():
+                prof.add_metadata_json(PREFIX + name, str(n))
     prof.export_chrome_trace(os.path.join(
         trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    with torch.profiler.record_function(name):
-        yield
