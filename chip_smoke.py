@@ -14,8 +14,10 @@ Phases, each printing its own lines:
    kernel's time beside the plain version's, a PyTorch library call's and
    the bound (bytes over 3.35 TB/s or operations over the peak rate); the
    same at the pruned tiers' shapes (``pruned_path_cases``); then the three
-   attention kernels at ragged shapes (``edge_cases``), checked and not
-   timed; masked attention's bf16 cases again on fresh draws
+   attention kernels and quick_gelu at ragged shapes (``edge_cases``),
+   checked and not timed; quick_gelu's refusals, its launch counter and
+   its autograd Function (``check_quick_gelu_calls``); masked attention's
+   bf16 cases again on fresh draws
    (``sweep_masked_attention``); then the exact two-stage top-k against
    the one stable sort at several batches (``phase_topk_chunk``);
 3. agreement: a tiny fp32 captioner run through the kernels and again with
@@ -91,10 +93,10 @@ Phases, each printing its own lines:
    below the first LayerNorm non-zero); then the trainer's command
    (``conzic_torch.train.tiny``) at trained_mid/'s widths with the data
    and the steps cut (``TRAIN_MID``, ``TRAIN_CUTS``): steps/s per tower,
-   the loss falling, LayerNorm launches equal to the towers' structure
-   (forward kernels only), the LayerNorm forward's and backward's device
-   time a step, peak memory; and the saved directory captioning two
-   scenes on the card through ``Captioner.from_tiny_dir``;
+   the loss falling, LayerNorm and quick_gelu launches equal to the
+   towers' structure (forward kernels only), the LayerNorm forward's and
+   backward's device time a step, peak memory; and the saved directory
+   captioning two scenes on the card through ``Captioner.from_tiny_dir``;
 10. bench and tools (``phase_bench_tools``): ``python -m
    conzic_torch.bench`` at its defaults under the xla and the pallas
    routes, each JSON line printed and checked (``bench.py``'s keys, a
@@ -194,6 +196,11 @@ from conzic_torch.kernels.masked_attention import (
     masked_attention,
     masked_attention_plain,
 )
+from conzic_torch.kernels.quick_gelu import (
+    quick_gelu,
+    quick_gelu_backward_plain,
+    quick_gelu_plain,
+)
 from conzic_torch.kernels.timing import time_ms
 from conzic_torch.models.checkpoint import load_tiny_checkpoint
 from conzic_torch.models.configs import BertConfig, CLIPConfig
@@ -238,9 +245,13 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense tensor-core bf16
 # So an output may lie 2^-7 (max(|plain|, 1) + sum_j w_j |v_j|) from its
 # plain version (Case.spread_fn gives the sum), whatever the inputs; one
 # ulp of max(|plain|, 1) alone refuses about one call in a hundred on
-# fresh draws (sweep_masked_attention counts them)
+# fresh draws (sweep_masked_attention counts them). quick_gelu computes each
+# value with its plain version's fp32 operations (1.702f, expf, an IEEE
+# division) and rounds once where the plain version does: the two are held
+# equal bit for bit, in bf16 and in fp32 (EXACT)
 BF16_ULP = 2.0 ** -7
 BF16_ULPS = {"layer_norm": 1, "attention_with_out": 1, "attention_block": 2}
+EXACT = ("quick_gelu",)
 # fresh draws of phase 2's bf16 masked-attention cases
 SWEEP_SEEDS = 400
 FP32_ATOL = 1e-4
@@ -258,14 +269,17 @@ KERNELS = {
     "attention_block": dict(
         route="cuda", source="conzic_torch/csrc/attention_block.cu",
         replaces="conzic_tpu/ops/fused_attn_block.py:96"),
+    # the reference's activation is plain jnp, which XLA fuses
+    "quick_gelu": dict(route="cuda", source="conzic_torch/csrc/quick_gelu.cu",
+                       replaces=None),
 }
 WRAPPERS = {"layer_norm": layer_norm, "masked_attention": masked_attention,
             "attention_with_out": attention_with_out,
-            "attention_block": attention_block}
+            "attention_block": attention_block, "quick_gelu": quick_gelu}
 # the attn_impl whose main-path run gives a kernel's launch count
 ROUTE_OF = {"layer_norm": "pallas", "masked_attention": "pallas",
             "attention_with_out": "pallas_out",
-            "attention_block": "pallas_block"}
+            "attention_block": "pallas_block", "quick_gelu": "pallas"}
 DEVICE = "cuda"
 MAIN = dict(batch=32, top_k=200, sentence_len=10, clip_len=24,
             prompt="Image of a", row_chunk=800, kv_chunk=16)
@@ -387,6 +401,19 @@ def ln_case(label, rows, feat, eps, dtype, gen) -> Case:
         lambda: F.layer_norm(x, (feat,), scale, bias, eps),
         n_bytes=2 * rows * feat * elem + 2 * feat * scale.element_size(),
         n_ops=8 * rows * feat)
+
+
+def qg_case(label, shape, dtype, gen) -> Case:
+    """CLIP's activation over a contiguous tensor; the library yardstick is
+    the expression the towers ran before the kernel, three kernels."""
+    x = (torch.randn(*shape, device=DEVICE, generator=gen) * 4).to(dtype)
+    n = x.numel()
+    return Case(
+        "quick_gelu", label, dtype,
+        lambda: quick_gelu(x),
+        lambda: quick_gelu_plain(x),
+        lambda: x * torch.sigmoid(1.702 * x),
+        n_bytes=2 * n * x.element_size(), n_ops=5 * n)
 
 
 def _sdpa(q, k, v, mask, D):
@@ -555,9 +582,12 @@ def main_path_cases(shape, dtype, gen) -> List[Case]:
     """Every call shape free captioning gives the kernels; the first of
     each kernel is the one that dominates a Gibbs step under its
     ``attn_impl``. The last block case is the full-row text pass the engine
-    makes without prefix K/V (``kv_chunk_size=0``)."""
+    makes without prefix K/V (``kv_chunk_size=0``). quick_gelu also at the
+    text chunk's hidden tensor of the benchmark's cells (800 rows x 28
+    suffix positions; ViT-B/32's and ViT-L/14's text widths)."""
     B, kc_rows, P, S = shape["B"], shape["rows"], shape["P"], shape["S_suf"]
     L = shape["bert_len"]
+    F_text, F_vis = 4 * 512, 4 * 768
     return [
         ln_case("text suffix chunk", kc_rows * S, 512, 1e-5, dtype, gen),
         ln_case("text pooled rows", kc_rows, 512, 1e-5, dtype, gen),
@@ -582,6 +612,12 @@ def main_path_cases(shape, dtype, gen) -> List[Case]:
         block_case("vision rows", B, 50, 768, 12, False, None, dtype, gen),
         block_case("text full-row chunk", kc_rows, P + S, 512, 8, True,
                    "reach", dtype, gen),
+        qg_case("text suffix chunk", (kc_rows, S, F_text), dtype, gen),
+        qg_case("text pooled rows", (kc_rows, 1, F_text), dtype, gen),
+        qg_case("text prompt prefix", (B, P, F_text), dtype, gen),
+        qg_case("vision rows", (B, 50, F_vis), dtype, gen),
+        qg_case("b32 cell's text chunk", (800 * 28, F_text), dtype, gen),
+        qg_case("l14 cell's text chunk", (800 * 28, F_vis), dtype, gen),
     ]
 
 
@@ -671,7 +707,8 @@ def phase_topk_chunk(gen) -> dict:
 
 
 def edge_cases(dtype, gen) -> List[Case]:
-    """Ragged shapes of the three attention kernels, checked against the
+    """Ragged shapes of the three attention kernels and quick_gelu (no
+    whole last vector; fewer values than one vector), checked against the
     plain versions and not timed: a row count that the kernels' row groups
     do not divide, key lengths from 0 (no key kept: a uniform softmax) to
     all, Sk = Sq, one query row, sequences of 1, 17, 50 and 100 rows (one to
@@ -769,6 +806,9 @@ def edge_cases(dtype, gen) -> List[Case]:
                    bias_dtype=torch.float32),
         block_case("biases bf16", 9, 15, 768, 12, False, None, dtype, gen,
                    bias_dtype=torch.bfloat16),
+        qg_case("ragged (1001, 7, 3)", (1001, 7, 3), dtype, gen),
+        qg_case("fewer than a vector (3,)", (3,), dtype, gen),
+        qg_case("ragged (999, 13)", (999, 13), dtype, gen),
     ]
 
 
@@ -799,6 +839,8 @@ def check_case(case: Case):
         return share <= 1.0, err, (
             f"a bf16 step of max(|plain|,1) and of each weight, {share:.3g}"
             f" of it; {worst:.3g} ulp")
+    if case.kernel in EXACT:
+        return err == 0, err, "equal bit for bit"
     if worst is not None:
         ulps = BF16_ULPS[case.kernel]
         return worst <= ulps, err, (f"{ulps} bf16 ulp of max(|plain|,1), "
@@ -836,6 +878,46 @@ def sweep_masked_attention(shape, n_seeds: int) -> dict:
         raise AssertionError("masked_attention beyond its bf16 bound in the "
                              "sweep")
     return dict(calls=n, over_ulp=over_ulp, worst_ulp=worst, share=share)
+
+
+def check_quick_gelu_calls(gen) -> None:
+    """What quick_gelu refuses on the card (a non-contiguous x, fp16, an x
+    not 16-byte aligned), its counter (one launch a call), and its autograd
+    Function (the kernel forward, launch counted, bit-equal to the plain
+    version; the plain backward)."""
+    x = torch.randn(64, 32, device=DEVICE, generator=gen).to(torch.bfloat16)
+    base = torch.randn(4099, device=DEVICE, generator=gen).to(torch.bfloat16)
+    refused = []
+    for label, bad in (("non-contiguous", x.t()), ("fp16", x.half()),
+                       ("2 bytes past a 16-byte boundary", base[1:])):
+        try:
+            quick_gelu(bad)
+        except (TypeError, ValueError) as e:
+            refused.append(f"{label}: {e}")
+        else:
+            raise AssertionError(f"quick_gelu took an x it must refuse "
+                                 f"({label})")
+    reset_launches()
+    for _ in range(3):
+        quick_gelu(x)
+    ticks = quick_gelu.launches
+    xg = torch.randn(40, 96, device=DEVICE, generator=gen,
+                     requires_grad=True)
+    dy = torch.randn(40, 96, device=DEVICE, generator=gen)
+    reset_launches()
+    y = quick_gelu(xg)
+    grad_launches = quick_gelu.launches
+    y.backward(dy)
+    fn = type(y.grad_fn).__name__
+    same_y = torch.equal(y.detach(), quick_gelu_plain(xg.detach()))
+    same_dx = torch.equal(xg.grad, quick_gelu_backward_plain(xg.detach(), dy))
+    say(f"quick_gelu calls: refused {refused}; launches over 3 calls "
+        f"{ticks}; under grad: grad_fn {fn}, {grad_launches} launch, y equal "
+        f"to the plain version {same_y}, dx equal to the plain backward "
+        f"{same_dx}")
+    if (ticks != 3 or grad_launches != 1 or fn != "QuickGeluFunctionBackward"
+            or not same_y or not same_dx):
+        raise AssertionError("quick_gelu's counter or Function on the card")
 
 
 # the kernels whose wrappers encode TMA maps on the host at every call
@@ -910,6 +992,7 @@ def phase_kernels(shape) -> dict:
     if failures:
         raise AssertionError("kernel disagrees with its plain version: "
                              + ", ".join(failures))
+    check_quick_gelu_calls(gen)
     sweep_masked_attention(shape, SWEEP_SEEDS)
     phase_topk_chunk(gen)
     return summary
@@ -1224,7 +1307,9 @@ def expected_launches(cap: Captioner, n_chunks: int, full_rows=False,
     and the final LN; one attention per layer, the last one pooled at the
     first EOS). Once per generation: the prompt prefix through the text
     tower, returning K/V, and the vision tower (pre-LN, 2 LN per layer,
-    post-LN). A pooled layer and a pass that returns K/V always take the
+    post-LN); every CLIP layer, pooled or not, runs one quick_gelu in its
+    MLP, under every attn_impl. A pooled layer and a pass that returns K/V
+    always take the
     masked-attention kernel; the other passes take the kernel their
     attn_impl names. ``full_rows`` (the exact bridge): no prefix pass, and
     every chunk encodes whole candidate rows, whose attention blocks but
@@ -1242,11 +1327,12 @@ def expected_launches(cap: Captioner, n_chunks: int, full_rows=False,
     prefix = 0 if full_rows else 1
     once = {"layer_norm": prefix * (2 * nt + 1) + (2 * nv + 2),
             "masked_attention": prefix * nt + nv, "attention_with_out": 0,
-            "attention_block": 0}
+            "attention_block": 0, "quick_gelu": prefix * nt + nv}
     step = {"layer_norm": 2 * nb + 2 + sum((2 * d + 1) * c
                                            for d, c in passes),
             "masked_attention": nb + sum(d * c for d, c in passes),
-            "attention_with_out": 0, "attention_block": 0}
+            "attention_with_out": 0, "attention_block": 0,
+            "quick_gelu": sum(d * c for d, c in passes)}
 
     def move(counts, n, to):
         counts["masked_attention"] -= n
@@ -1308,7 +1394,7 @@ def phase_main(iters: int, cap: Captioner, shape: dict, pixels,
     say(f"launches [{impl}]: {launches}; the engine's structure gives "
         f"{want}: {once} once per generation and {per_step} per Gibbs step")
     route = cap.cfg.attn_impl
-    must = (["layer_norm"] if route in XLA_IMPLS else
+    must = (["layer_norm", "quick_gelu"] if route in XLA_IMPLS else
             [n for n, r in ROUTE_OF.items() if r in ("pallas", route)])
     if any(launches[n] <= 0 for n in must):
         raise AssertionError(f"a kernel of the {impl} path never launched: "
@@ -2480,7 +2566,8 @@ def _mesh_launches(cap: Captioner, iters: int) -> Dict[str, int]:
     once, step = expected_launches(cap, n_row_chunks(
         MAIN["batch"] // rows, MAIN["top_k"], MAIN["row_chunk"]))
     nt = cap.clip_model.config.text.num_layers
-    prefix = {"layer_norm": 2 * nt + 1, "masked_attention": nt}
+    prefix = {"layer_norm": 2 * nt + 1, "masked_attention": nt,
+              "quick_gelu": nt}
     return {k: once[k] + (rows - 1) * prefix.get(k, 0) + rows * steps * v
             for k, v in step.items()}
 
@@ -2867,10 +2954,10 @@ def phase_train_full() -> dict:
     """The trainer's command (``conzic_torch.train.tiny.main``) at
     trained_mid/'s arguments with the data and the steps cut: steps/s per
     tower, the mean loss of its first and last chunk (it must fall),
-    LayerNorm launches (the towers' structure: forward kernel only, the
-    backward is plain) and peak memory; then the saved directory through
-    ``Captioner.from_tiny_dir`` on the card, two rendered scenes
-    captioned at k=16."""
+    LayerNorm and quick_gelu launches (the towers' structure: forward
+    kernels only, the backwards are plain) and peak memory; then the
+    saved directory through ``Captioner.from_tiny_dir`` on the card, two
+    rendered scenes captioned at k=16."""
     out = scratch_dir("train_mid")
     argv = TRAIN_MID + TRAIN_CUTS + ["--out", out, "--device", DEVICE]
     say(f"train [trained_mid's arguments]: {' '.join(TRAIN_MID)}; cut: "
@@ -2898,6 +2985,10 @@ def phase_train_full() -> dict:
                 + per_step["bert"])
     want = dict.fromkeys(WRAPPERS, 0)
     want["layer_norm"] = train_want + val_want
+    # one quick_gelu a CLIP layer: vision and text a step; in validation
+    # the vision tower once and the text tower twice
+    nv, nt = clip_cfg.vision.num_layers, clip_cfg.text.num_layers
+    want["quick_gelu"] = steps["clip"] * (nv + nt) + nv + 2 * nt
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     tiny_shapes = trained_tiny_ln_shapes()
     check_train_ln(shapes["clip"] + shapes["bert"] + tiny_shapes["clip"]

@@ -4,7 +4,8 @@ Counterpart of ``conzic_tpu/models/layers.py``: BERT (post-LayerNorm, erf
 gelu) and both CLIP towers (pre-LayerNorm, quick gelu) share one residual
 block. Parameters keep the type they were stored in and are cast to the
 module's compute ``dtype`` on use, as the flax modules do; every LayerNorm
-goes through the LayerNorm kernel and every attention through one of the
+goes through the LayerNorm kernel, every quick gelu through the quick_gelu
+kernel and every attention through one of the
 three attention kernels, chosen by ``attn_impl``, or through the
 reference's own XLA formulations (``"xla"``, ``"xla_bhsd"``,
 ``"twoblock"``: plain PyTorch products, the library route). Under
@@ -27,6 +28,7 @@ from conzic_torch.kernels.masked_attention import (
     masked_attention,
     with_prefix,
 )
+from conzic_torch.kernels.quick_gelu import quick_gelu
 from conzic_torch.ops.attention import (
     XLA_IMPLS,
     AttnMask,
@@ -51,14 +53,11 @@ def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return p.to(dtype)
 
 
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    """CLIP's activation: ``x * sigmoid(1.702 x)``."""
-    return x * torch.sigmoid(1.702 * x)
-
-
 ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "gelu": F.gelu,  # erf form, as HF BERT
-    "quick_gelu": quick_gelu,
+    # CLIP's, through the quick_gelu kernel; read from this module at call
+    # time, as LayerNorm.forward reads layer_norm
+    "quick_gelu": lambda x: quick_gelu(x),
 }
 
 

@@ -3,7 +3,10 @@
 ``conzic_torch.kernels.layer_norm`` and ``conzic_torch.kernels.masked_attention``
 take their plain PyTorch versions for CPU tensors. Both are held against the
 JAX package's Pallas kernels run in interpret mode, as tests/test_fused_ln.py
-and tests/test_fused_attention.py run them, at fp32 with tolerance 2e-5.
+and tests/test_fused_attention.py run them, at fp32 with tolerance 2e-5;
+``conzic_torch.kernels.quick_gelu`` against the reference's activation,
+which has no Pallas kernel; with it the plain version's arithmetic, its
+autograd Function's gradient and the towers' route to ``layers.quick_gelu``.
 The CUDA kernels themselves are held against these plain versions on the
 card by chip_smoke.py.
 """
@@ -15,6 +18,7 @@ import torch
 import jax.numpy as jnp
 
 from _torch_port import one_torch_thread  # noqa: F401  (a fixture)
+from conzic_tpu.models.layers import quick_gelu as jax_quick_gelu
 from conzic_tpu.ops.fused_attention import fused_masked_attention
 from conzic_tpu.ops.fused_ln import fused_layer_norm
 from conzic_torch.kernels.layer_norm import layer_norm, layer_norm_plain
@@ -22,6 +26,21 @@ from conzic_torch.kernels.masked_attention import (
     masked_attention,
     masked_attention_plain,
 )
+from conzic_torch.kernels import build
+from conzic_torch.kernels.quick_gelu import (
+    QuickGeluFunction,
+    quick_gelu,
+    quick_gelu_plain,
+)
+from conzic_torch.models import layers
+from conzic_torch.models.bert import BertForMaskedLM
+from conzic_torch.models.clip import CLIPTextTower, CLIPVisionTower
+from conzic_torch.models.configs import (
+    BertConfig,
+    CLIPTextConfig,
+    CLIPVisionConfig,
+)
+from conzic_torch.models.init import init_params
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -50,6 +69,103 @@ def test_layer_norm_keeps_bf16_and_leading_axes():
     assert out.dtype == torch.bfloat16 and out.shape == x.shape
     f = out.float().numpy()
     assert abs(f.mean()) < 0.05 and abs(f.std() - 1) < 0.1
+
+
+@pytest.mark.parametrize("shape", [(5,), (37, 64), (4, 28, 128)])
+def test_quick_gelu_matches_the_reference_activation(shape):
+    # the reference's activation has no Pallas kernel: XLA fuses it
+    x = (np.random.RandomState(5).randn(*shape) * 4).astype(np.float32)
+    ref = np.asarray(jax_quick_gelu(jnp.asarray(x)))
+    t = torch.from_numpy(x)
+    np.testing.assert_allclose(quick_gelu_plain(t).numpy(), ref, **TOL)
+    np.testing.assert_allclose(quick_gelu(t).numpy(), ref, **TOL)
+
+
+def _draw(shape, seed=0, scale=4.0):
+    # wide enough to reach both tails of the sigmoid
+    return torch.from_numpy(
+        np.random.RandomState(seed).randn(*shape).astype(np.float32) * scale)
+
+
+@pytest.mark.parametrize("shape", [(1,), (7, 33), (2, 28, 128)])
+def test_plain_equals_the_library_expression_in_fp32(shape):
+    x = _draw(shape)
+    assert torch.equal(quick_gelu_plain(x), x * torch.sigmoid(1.702 * x))
+    assert torch.equal(quick_gelu(x), quick_gelu_plain(x))
+
+
+def test_plain_in_bf16_is_the_fp32_result_rounded_once():
+    x = _draw((64, 96), seed=1).to(torch.bfloat16)
+    xf = x.float()
+    want = (xf * torch.sigmoid(1.702 * xf)).to(torch.bfloat16)
+    got = quick_gelu_plain(x)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    # the library's three bf16 kernels round three times: they differ
+    assert not torch.equal(x * torch.sigmoid(1.702 * x), want)
+
+
+@pytest.mark.parametrize("shape", [(5, 40), (2, 28, 128)])
+def test_function_gradient_equals_autograd_of_the_formula(shape):
+    x = _draw(shape, seed=2)
+    dy = _draw(shape, seed=3, scale=1.0)
+    a = x.clone().requires_grad_()
+    (a * torch.sigmoid(1.702 * a)).backward(dy)
+    b = x.clone().requires_grad_()
+    y = QuickGeluFunction.apply(b)
+    y.backward(dy)
+    assert torch.equal(y.detach(), quick_gelu_plain(x))
+    # fp32: the two sum the same terms, in another order
+    torch.testing.assert_close(b.grad, a.grad, rtol=1e-6, atol=1e-6)
+
+
+def test_wrapper_takes_the_function_only_under_grad():
+    x = _draw((3, 8)).requires_grad_()
+    assert type(quick_gelu(x).grad_fn).__name__ == "QuickGeluFunctionBackward"
+    with torch.no_grad():
+        assert quick_gelu(x).grad_fn is None
+    with torch.inference_mode():
+        assert quick_gelu(x).grad_fn is None
+    assert quick_gelu(x.detach()).grad_fn is None
+
+
+def _tower_call(kind):
+    gen = torch.Generator().manual_seed(0)
+    if kind == "text":
+        cfg = CLIPTextConfig.tiny()
+        tower = init_params(CLIPTextTower(cfg), gen)
+        ids = torch.randint(0, cfg.vocab_size - 1, (2, 6), generator=gen)
+        return cfg.num_layers, lambda: tower(ids)
+    if kind == "vision":
+        cfg = CLIPVisionConfig.tiny()
+        tower = init_params(CLIPVisionTower(cfg), gen)
+        px = torch.randn(2, cfg.image_size, cfg.image_size, 3, generator=gen)
+        return cfg.num_layers, lambda: tower(px)
+    cfg = BertConfig.tiny()
+    bert = init_params(BertForMaskedLM(cfg), gen)
+    ids = torch.randint(0, cfg.vocab_size, (2, 6), generator=gen)
+    return 0, lambda: bert(ids)
+
+
+@pytest.mark.parametrize("kind", ["text", "vision", "bert"])
+def test_towers_reach_the_module_quick_gelu_at_call_time(kind, monkeypatch):
+    # the towers are built before the module's function is replaced, as
+    # the benchmark's recording replaces it around a traced request
+    layers_per_call, call = _tower_call(kind)
+    seen = []
+
+    def counting(x):
+        seen.append(tuple(x.shape))
+        return quick_gelu(x)
+
+    monkeypatch.setattr(layers, "quick_gelu", counting)
+    with torch.inference_mode():
+        call()
+    assert len(seen) == layers_per_call
+
+
+def test_quick_gelu_is_built_with_the_kernels():
+    assert "quick_gelu" in build.SOURCES
+    assert (build.CSRC / "quick_gelu.cu").is_file()
 
 
 def _qkv(rng, N, Sq, Sk, H, D):
@@ -121,3 +237,5 @@ def test_wrappers_refuse_devices_without_a_kernel():
     q = torch.empty(1, 2, 1, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         masked_attention(q, q, q)
+    with pytest.raises(ValueError, match="no kernel"):
+        quick_gelu(x)
