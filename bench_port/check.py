@@ -3,18 +3,26 @@
 once the window has closed and the program is gone.
 
 The readings; those named in the cell's ``limits/<cell>.json`` are
-compared, each against its limit there (the cells compare all six):
+compared, each against its limit there (the cells compare all but
+``commit_gap_mean``):
 
 - ``image_embed_err``: the image tower and its projection, the widest
   relative L2 distance of an image embedding from the reference's;
-- ``lm_gap_mean``: BERT's masked-LM distribution and its top k, the mean
-  over the sampled commits of how far, in nats at the LM temperature, the
-  committed token lies below the reference's k-th candidate (0 inside the
-  top k; infinite for a token the rules forbid at its slot);
-- ``commit_gap_mean``: the WordPiece-to-CLIP bridge of the candidates,
-  the text tower over them, the image match and the combined score, the
-  mean over the sampled commits of how far the committed token's
+- ``lm_gap_mean``: the proposer's masked-LM distribution and its top k,
+  the mean over the sampled commits of how far, in nats at the LM
+  temperature, the committed token lies below the reference's k-th
+  candidate (0 inside the top k; infinite for a token the rules forbid at
+  its slot);
+- ``commit_gap_mean``: the bridge of the candidates into the matcher's
+  rows, its text tower over them, the image match and the combined score,
+  the mean over the sampled commits of how far the committed token's
   ``alpha * lm + beta * clip`` lies below the reference's best;
+- ``commit_gap_step_median``: the same gaps, the median over the sampled
+  steps of each step's mean. A step commits for every image of a
+  request at once, and near-alike images tie alike: where bf16 tips one
+  near-tie, it tips it for most of the batch, and that one step moves
+  the mean over all commits by a run's whole margin; the median over
+  steps reads the steps that did not tip;
 - ``frame_errors``: rows whose [CLS], prompt and [SEP] differ from the
   reference's (exact);
 - ``text_errors``: texts that differ from the reference's decoding of the
@@ -29,7 +37,8 @@ Each is taken over a sample drawn from the seed: the traffic's
 row of theirs, and ``check_steps`` of their Gibbs steps. The reference
 follows the served captions step by step from their own states: each
 sampled step is judged from the rows before it, which the served
-iterations and the slot order give.
+iterations and the slot order give. The towers' pieces come from the
+configuration's two families (``bench_port/families/``).
 """
 
 from __future__ import annotations
@@ -40,10 +49,8 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from bench_port import inputs
 from bench_port.reference import gibbs
-from bench_port.reference.models import Reference, fp32_only
-from bench_port.reference.text import ClipBpe, WordPiece
+from bench_port.reference.models import fp32_only
 
 
 def relative_err(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -66,7 +73,8 @@ class Tally:
     """The values a check reads, by kind, and the readings made of them."""
 
     def __init__(self):
-        self.values = {k: [] for k in ("image", "cos", "lm", "commit")}
+        self.values = {k: [] for k in ("image", "cos", "lm", "commit",
+                                       "commit_step")}
         self.counts = {"frame": 0, "text": 0}
 
     def add(self, kind: str, values) -> None:
@@ -88,30 +96,38 @@ class Tally:
             "text_cos_err": widest("cos"),
             "lm_gap_mean": mean("lm"),
             "commit_gap_mean": mean("commit"),
+            "commit_gap_step_median": (
+                float(np.median(self.values["commit_step"]))
+                if self.values["commit_step"] else 0.0),
             "frame_errors": float(self.counts["frame"]),
             "text_errors": float(self.counts["text"]),
         }
 
 
 class Judge:
-    def __init__(self, config: dict, traffic: dict, wp_vocab: Dict[str, int],
-                 weights: Dict[str, torch.Tensor], device):
+    """``families`` and ``vocab``: the proposer's and the matcher's family
+    modules and vocabularies, by role ("lm", "match")."""
+
+    def __init__(self, config: dict, traffic: dict, families: dict,
+                 vocab: dict, weights: Dict[str, torch.Tensor], device):
         self.config, self.traffic, self.device = config, traffic, device
-        self.wp = WordPiece(wp_vocab)
-        self.bpe = ClipBpe(*inputs.clip_bpe(
-            config["match"]["text_config"]["vocab_size"]))
-        self.weights = weights
-        self.ref = Reference(weights, config["lm"], config["match"],
-                             self.bpe.eos)
-        self.init = np.asarray(self.wp.init_row(traffic["prompt"],
-                                                traffic["sentence_len"]))
+        self.families, self.vocab, self.weights = families, vocab, weights
+        self.lm, self.match = self.references(None)
+        self.text = self.lm.text
+        self.init = np.asarray(self.text.init_row(traffic["prompt"],
+                                                  traffic["sentence_len"]))
         self.seed_len = len(self.init) - traffic["sentence_len"] - 1
-        self.clip_len = config["run"]["clip_len"]
+
+    def references(self, lowp):
+        """The proposer's and the matcher's references in ``lowp``."""
+        return tuple(self.families[r].reference(self.weights, self.config,
+                                                self.vocab[r], lowp)
+                     for r in ("lm", "match"))
 
     def pixels(self, pixel_seed: int) -> torch.Tensor:
-        v = self.config["match"]["vision_config"]
-        return inputs.pixels(pixel_seed, self.traffic["images_per_request"],
-                             v["image_size"], v["num_channels"], self.device)
+        return self.families["match"].pixels(
+            self.config, pixel_seed, self.traffic["images_per_request"],
+            self.device)
 
     def sample(self, served: List, rng: np.random.Generator):
         """What is judged, drawn from ``rng``: the traffic's
@@ -150,11 +166,11 @@ class Judge:
         if not served:
             return tally.readings()
         requests, picked = self.sample(served, rng)
-        masks = gibbs.token_masks(self.wp, self.device)
+        masks = gibbs.token_masks(self.text, self.device)
         with torch.inference_mode(), fp32_only():
             for r in requests:
                 req = served[r]
-                img = self.ref.image_embeds(self.pixels(req.pixel_seed))
+                img = self.match.image_embeds(self.pixels(req.pixel_seed))
                 tally.add("image", relative_err(req.image_embeds.float(),
                                                 img))
                 self._judge_rows(req, img, tally)
@@ -173,42 +189,41 @@ class Judge:
         tally = Tally()
         if not served:
             return tally.readings()
-        low = Reference(self.weights, self.config["lm"],
-                        self.config["match"], self.bpe.eos, lowp)
+        low_lm, low_match = self.references(lowp)
         requests, picked = self.sample(served, rng)
-        masks = gibbs.token_masks(self.wp, self.device)
+        masks = gibbs.token_masks(self.text, self.device)
         t = self.traffic
         with torch.inference_mode(), fp32_only():
             for r in requests:
                 req = served[r]
                 px = self.pixels(req.pixel_seed)
-                img, img_low = self.ref.image_embeds(px), low.image_embeds(px)
+                img = self.match.image_embeds(px)
+                img_low = low_match.image_embeds(px)
                 tally.add("image", relative_err(img_low, img))
                 for ids in req.iter_ids:
                     I, B, _ = ids.shape
                     rows = ids.reshape(I * B, -1)
-                    ref_cos = gibbs.cosines(self.ref, self.wp, self.bpe, rows,
-                                            img.repeat(I, 1), self.clip_len)
-                    low_cos = gibbs.cosines(low, self.wp, self.bpe, rows,
-                                            img_low.repeat(I, 1),
-                                            self.clip_len)
+                    ref_cos = gibbs.cosines(self.match, self.text, rows,
+                                            img.repeat(I, 1))
+                    low_cos = gibbs.cosines(low_match, self.text, rows,
+                                            img_low.repeat(I, 1))
                     tally.add("cos", (low_cos - ref_cos).abs())
                 for (_, s, i, j) in (x for x in picked if x[0] == r):
                     state, col, last, _ = self.state(req, s, i, j)
                     chosen = gibbs.choose_step(
-                        low, self.wp, self.bpe, masks, state, col, last,
-                        img_low, t["candidate_k"], t["lm_temperature"],
-                        t["alpha"], t["beta"], self.clip_len)
+                        low_lm, low_match, masks, state, col, last, img_low,
+                        t["candidate_k"], t["lm_temperature"], t["alpha"],
+                        t["beta"])
                     self._gaps(tally, state, col, last, chosen, img, masks)
         return tally.readings()
 
     def _gaps(self, tally, state, col, last, committed, img, masks) -> None:
         t = self.traffic
         j = gibbs.judge_step(
-            self.ref, self.wp, self.bpe, masks, state, col, last, committed,
-            img, t["candidate_k"], t["lm_temperature"], t["alpha"],
-            t["beta"], self.clip_len)
+            self.lm, self.match, masks, state, col, last, committed, img,
+            t["candidate_k"], t["lm_temperature"], t["alpha"], t["beta"])
         tally.add("commit", j.commit_gap)
+        tally.add("commit_step", [np.mean(j.commit_gap)])
         tally.add("lm", j.lm_gap)
 
     def _judge_rows(self, req, img: torch.Tensor, tally) -> None:
@@ -220,12 +235,12 @@ class Judge:
             tally.count("frame", int(
                 (ids[:, :, keep] != self.init[keep]).any(-1).sum()))
             ref_cos = gibbs.cosines(
-                self.ref, self.wp, self.bpe, ids.reshape(I * B, -1),
-                img.repeat(I, 1), self.clip_len).reshape(I, B).cpu().numpy()
+                self.match, self.text, ids.reshape(I * B, -1),
+                img.repeat(I, 1)).reshape(I, B).cpu().numpy()
             got = np.asarray(req.cosines[s][:I], np.float64)
             tally.add("cos", np.abs(got - ref_cos))
             texts = req.texts[s]
-            want = [[self.wp.decode(row) for row in it] for it in ids]
+            want = [[self.text.decode(row) for row in it] for it in ids]
             for b in range(B):
                 at = best_index([req.cosines[s][i][b] for i in range(I)])
                 want_best = want[at][b] if at >= 0 else "None"

@@ -6,7 +6,8 @@ The ``card`` marker names a test that runs on an NVIDIA card; it decides
 inside the test whether one is present and skips with its reason on a
 machine without one. The fixtures write a tiny benchmark tree (a
 ``BENCHMARK.json`` with one cell, its configuration, traffic and limits,
-and copies of the metric and count readers) into a temporary directory:
+and copies of the metric and count readers and of the tower families)
+into a temporary directory:
 the harness finds everything in it by name, as it does in a checkout.
 """
 
@@ -38,7 +39,8 @@ TINY_VISION = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
 # the tiny cell computes in float32, where the program and the reference
 # agree to about 1e-7 (test_sound_tiny_fp32_run_agrees_to_rounding)
 TINY_LIMITS = dict(image_embed_err=1e-4, lm_gap_mean=1e-4,
-                   commit_gap_mean=1e-5, text_cos_err=1e-4, frame_errors=0,
+                   commit_gap_mean=1e-5, commit_gap_step_median=1e-5,
+                   text_cos_err=1e-4, frame_errors=0,
                    text_errors=0)
 TINY_TRAFFIC = dict(images_per_request=2, candidate_k=8, sentence_len=4,
                     iterations=2, check_requests=2, check_steps=4)
@@ -62,7 +64,7 @@ def write_tiny_tree(root: Path, dtype: str = "float32",
     bench = json.loads((PKG.parent / "BENCHMARK.json").read_text())
     bench["workloads"] = [{"name": "tiny-cell", "config": "tiny",
                            "traffic": "tiny", "chips": 1, "why": "tests"}]
-    for m in bench["per_layer"]:
+    for m in bench["end_to_end"] + bench["per_layer"]:
         m["workloads"] = ["tiny-cell"]
     pkg = root / "bench_port"
     for sub in ("configs", "traffic", "limits"):
@@ -70,7 +72,7 @@ def write_tiny_tree(root: Path, dtype: str = "float32",
     (pkg / "configs" / "tiny.json").write_text(json.dumps(cfg))
     (pkg / "traffic" / "tiny.json").write_text(json.dumps(traffic))
     (pkg / "limits" / "tiny-cell.json").write_text(json.dumps(limits))
-    for sub in ("metrics", "counts"):
+    for sub in ("metrics", "counts", "families"):
         shutil.copytree(PKG / sub, pkg / sub, dirs_exist_ok=True,
                         ignore=shutil.ignore_patterns("__pycache__"))
     (root / "BENCHMARK.json").write_text(json.dumps(bench))

@@ -4,8 +4,10 @@ and the schedule seeds.
 
 Everything here is the benchmark's own: the program under test and the
 plain reference read what these functions make, and neither makes any of
-it. The weights are a Hugging Face state dict (``BertForMaskedLM`` and
-``CLIPModel`` names and layouts), drawn on the device in a few large calls.
+it. The weights are a Hugging Face state dict (here ``BertForMaskedLM``'s
+and ``CLIPModel``'s names and layouts), drawn on the device in a few large
+calls. The tower families (``bench_port/families/``) choose what of this
+each configuration uses.
 """
 
 from __future__ import annotations
@@ -158,9 +160,10 @@ def clip_bpe(vocab_size: int) -> Tuple[Dict[str, int],
     return vocab, tuple(merges)
 
 
-def write_bpe_files(directory: str, vocab_size: int) -> Tuple[str, str]:
-    """vocab.json and merges.txt of :func:`clip_bpe` in ``directory``."""
-    vocab, merges = clip_bpe(vocab_size)
+def write_bpe_files(directory: str, bpe) -> Tuple[str, str]:
+    """vocab.json and merges.txt of ``bpe``, a :func:`clip_bpe`, in
+    ``directory``."""
+    vocab, merges = bpe
     vocab_path = os.path.join(directory, "vocab.json")
     merges_path = os.path.join(directory, "merges.txt")
     with open(vocab_path, "w", encoding="utf-8") as f:
@@ -256,28 +259,29 @@ def clip_spec(match: dict) -> List[Tuple[str, tuple, str]]:
     out += _ln("vision_model.post_layernorm", Ev)
     out += [("visual_projection.weight", (D, Ev), "normal"),
             ("text_projection.weight", (D, Et), "normal"),
-            ("logit_scale", (), "logit_scale")]
+            ("logit_scale", (), "fixed")]
     return out
 
 
 def make_weights(spec: List[Tuple[str, tuple, str]], seed: int,
-                 device, logit_scale: float) -> Dict[str, torch.Tensor]:
+                 device, fixed: Dict[str, float]) -> Dict[str, torch.Tensor]:
     """One fp32 state dict for ``spec``: matrices and embeddings
     N(0, WEIGHT_STD), biases N(0, WEIGHT_STD), LayerNorm scales
-    1 + N(0, WEIGHT_STD), ``logit_scale`` as given. Two draws of one
-    seeded generator on ``device``; every tensor is a view of them."""
+    1 + N(0, WEIGHT_STD), a "fixed" scalar as ``fixed`` gives it by name
+    (the configuration's ``weights``). Two draws of one seeded generator
+    on ``device``; every tensor is a view of them."""
     gen = torch.Generator(device=device).manual_seed(seed)
     sizes = {"normal": 0, "small": 0}
     for _, shape, kind in spec:
-        if kind != "logit_scale":
+        if kind != "fixed":
             sizes["normal" if kind == "normal" else "small"] += math.prod(shape)
     bufs = {k: torch.randn(n, generator=gen, device=device).mul_(WEIGHT_STD)
             for k, n in sizes.items()}
     offs = {"normal": 0, "small": 0}
     out = {}
     for name, shape, kind in spec:
-        if kind == "logit_scale":
-            out[name] = torch.tensor(logit_scale, device=device)
+        if kind == "fixed":
+            out[name] = torch.tensor(fixed[name], device=device)
             continue
         k = "normal" if kind == "normal" else "small"
         n = math.prod(shape)
@@ -292,12 +296,6 @@ def make_weights(spec: List[Tuple[str, tuple, str]], seed: int,
 # ---------------------------------------------------------------------------
 # per-request inputs
 # ---------------------------------------------------------------------------
-
-# CLIP's preprocessing statistics: pixels are uniform in [0, 1), then
-# normalised as a preprocessed photograph is
-CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
-CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
-
 
 class Seeds:
     """Every seed of a run, derived from ``--seed`` (any whole number that
@@ -322,11 +320,14 @@ class Seeds:
 
 
 def pixels(seed: int, batch: int, image_size: int, channels: int,
-           device) -> torch.Tensor:
-    """(batch, H, W, C) preprocessed pixels, NHWC, fp32, on ``device``."""
+           device, mean: Tuple[float, ...], std: Tuple[float, ...]
+           ) -> torch.Tensor:
+    """(batch, H, W, C) pixels, NHWC, fp32, on ``device``: uniform in
+    [0, 1), then normalised by the matcher's per-channel ``mean`` and
+    ``std``, as a preprocessed photograph is."""
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.rand((batch, image_size, image_size, channels), generator=gen,
                    device=device)
-    mean = torch.tensor(CLIP_MEAN[:channels], device=device)
-    std = torch.tensor(CLIP_STD[:channels], device=device)
+    mean = torch.tensor(mean[:channels], device=device)
+    std = torch.tensor(std[:channels], device=device)
     return (x - mean) / std

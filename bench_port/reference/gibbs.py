@@ -1,10 +1,12 @@
 """One Gibbs step of ConZIC, scored plainly.
 
-At a caption slot: BERT's masked-LM distribution at temperature T, the
-stop-word and period rules, its top k; each candidate's caption through
-CLIP's BPE into a CLIP row; the text tower over every row; the cosine with
-the image; ``alpha * lm + beta * softmax(logit_scale * cosine)`` over the k
-candidates, whose argmax is committed.
+At a caption slot: the proposer's masked-LM distribution at temperature
+T, the stop-word and period rules, its top k; each candidate's caption
+into the matcher's row; the matcher's text tower over every row; the
+cosine with the image; ``alpha * lm + beta * softmax(matcher logits of
+the cosines)`` over the k candidates, whose argmax is committed. The
+proposer ``lm`` and the matcher ``match`` are the references of the
+configuration's two tower families (``bench_port/families/``).
 
 :func:`judge_step` scores the step a served caption took, from the
 caption's state before it, and says how far the committed token lies below
@@ -19,9 +21,6 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
-
-from bench_port.reference.models import Reference
-from bench_port.reference.text import ClipBpe, WordPiece, clip_row
 
 ROW_BLOCK = 2048  # text-tower rows per pass of the reference
 
@@ -45,23 +44,24 @@ def slot_order(order: str, sentence_len: int, samples: int,
     return out
 
 
-def token_masks(wp: WordPiece, device) -> torch.Tensor:
-    """(2, V) float: row 0 the caption's middle slots, row 1 its last."""
-    V = len(wp.vocab)
+def token_masks(text, device) -> torch.Tensor:
+    """(2, V) float: row 0 the caption's middle slots, row 1 its last;
+    ``text``: the proposer's text rules."""
+    V = len(text.vocab)
     m = np.zeros((2, V), np.float32)
     for i in range(V):
-        m[0, i] = wp.allowed(i, last_slot=False)
-        m[1, i] = wp.allowed(i, last_slot=True)
+        m[0, i] = text.allowed(i, last_slot=False)
+        m[1, i] = text.allowed(i, last_slot=True)
     return torch.from_numpy(m).to(device)
 
 
-def text_embeds(ref: Reference, rows: Sequence[Sequence[int]],
+def text_embeds(match, rows: Sequence[Sequence[int]],
                 n_valid: Sequence[int], device) -> torch.Tensor:
     out = []
     for a in range(0, len(rows), ROW_BLOCK):
         ids = torch.tensor(rows[a:a + ROW_BLOCK], device=device)
         n = torch.tensor(n_valid[a:a + ROW_BLOCK], device=device)
-        out.append(ref.text_embeds(ids, n))
+        out.append(match.text_embeds(ids, n))
     return torch.cat(out)
 
 
@@ -69,13 +69,12 @@ def unit(x: torch.Tensor) -> torch.Tensor:
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
 
-def cosines(ref: Reference, wp: WordPiece, bpe: ClipBpe,
-            captions: np.ndarray, image: torch.Tensor, clip_len: int
+def cosines(match, text, captions: np.ndarray, image: torch.Tensor
             ) -> torch.Tensor:
-    """(N, S) WordPiece rows ([CLS] .. [SEP]) and (N, D) reference image
-    embeddings -> (N,) cosines of the captions' CLIP rows."""
-    rows, n = zip(*(clip_row(wp, bpe, r[1:-1], clip_len) for r in captions))
-    emb = text_embeds(ref, rows, n, image.device)
+    """(N, S) proposer rows and (N, D) reference image embeddings -> (N,)
+    cosines of the captions' matcher rows."""
+    rows, n = zip(*(match.row(text, r) for r in captions))
+    emb = text_embeds(match, rows, n, image.device)
     return (unit(emb) * unit(image)).sum(-1)
 
 
@@ -85,22 +84,20 @@ class StepJudgement:
     lm_gap: np.ndarray  # (B,) nats the committed token lies below the k-th
 
 
-def _scores(ref: Reference, wp: WordPiece, bpe: ClipBpe,
-            masks: torch.Tensor, state: np.ndarray, col: int,
+def _scores(lm, match, masks: torch.Tensor, state: np.ndarray, col: int,
             last_slot: bool, image: torch.Tensor, k: int,
-            temperature: float, alpha: float, beta: float, clip_len: int,
+            temperature: float, alpha: float, beta: float,
             extra: Optional[np.ndarray] = None):
-    """One step scored by ``ref`` at column ``col`` of ``state`` (B, S):
-    per row the candidates (the top k, then ``extra[b]`` when it is not
-    among them and the rules allow it), their combined scores (the CLIP
-    softmax over the k, a further candidate scored with the k's
-    normaliser), and the masked-LM logits (B, V)."""
+    """One step scored by ``lm`` and ``match`` at column ``col`` of
+    ``state`` (B, S): per row the candidates (the top k, then
+    ``extra[b]`` when it is not among them and the rules allow it), their
+    combined scores (the matcher's softmax over the k, a further
+    candidate scored with the k's normaliser), and the masked-LM logits
+    (B, V)."""
     dev = image.device
     B = state.shape[0]
-    masked = torch.tensor(state, device=dev, dtype=torch.long)
-    masked[:, col] = wp.vocab["[MASK]"]
-    cols = torch.full((B,), col, device=dev, dtype=torch.long)
-    logits = ref.bert_logits(masked, cols)  # (B, V)
+    text = lm.text
+    logits = lm.logits(state, col)  # (B, V)
     probs = torch.softmax(logits / temperature, dim=-1) * masks[
         1 if last_slot else 0]
     top_p, top_i = torch.topk(probs, k, dim=-1)
@@ -111,33 +108,31 @@ def _scores(ref: Reference, wp: WordPiece, bpe: ClipBpe,
         c = [int(t) for t in top_i[b]]
         if extra is not None:
             t = int(extra[b])
-            if t not in c and wp.allowed(t, last_slot):
+            if t not in c and text.allowed(t, last_slot):
                 c.append(t)
         cands.append(c)
         for t in c:
             row = state[b].copy()
             row[col] = t
-            r, n = clip_row(wp, bpe, row[1:-1], clip_len)
+            r, n = match.row(text, row)
             rows.append(r)
             n_valid.append(n)
-    emb = unit(text_embeds(ref, rows, n_valid, dev))
+    emb = unit(text_embeds(match, rows, n_valid, dev))
     img = unit(image)
-    scale = ref.logit_scale()
     finals, at = [], 0
     for b, c in enumerate(cands):
-        z = scale * (emb[at:at + len(c)] @ img[b]).double()
+        z = match.logits((emb[at:at + len(c)] @ img[b]).double())
         at += len(c)
-        clip_p = torch.exp(z - torch.logsumexp(z[:k], dim=0)).cpu().numpy()
+        match_p = torch.exp(z - torch.logsumexp(z[:k], dim=0)).cpu().numpy()
         lm_p = probs_np[b, c].astype(np.float64)
-        finals.append(alpha * lm_p + beta * clip_p)
+        finals.append(alpha * lm_p + beta * match_p)
     return cands, finals, logits.cpu().numpy(), top_i
 
 
-def judge_step(ref: Reference, wp: WordPiece, bpe: ClipBpe,
-               masks: torch.Tensor, state: np.ndarray, col: int,
-               last_slot: bool, committed: np.ndarray, image: torch.Tensor,
-               k: int, temperature: float, alpha: float, beta: float,
-               clip_len: int) -> StepJudgement:
+def judge_step(lm, match, masks: torch.Tensor, state: np.ndarray,
+               col: int, last_slot: bool, committed: np.ndarray,
+               image: torch.Tensor, k: int, temperature: float, alpha: float,
+               beta: float) -> StepJudgement:
     """``state`` (B, S): the rows before the step; ``col``: the edited
     column; ``committed`` (B,) the token the served caption put there;
     ``image`` (B, D) the reference's image embeddings.
@@ -146,8 +141,8 @@ def judge_step(ref: Reference, wp: WordPiece, bpe: ClipBpe,
     its masked-LM probability, and its CLIP softmax taken with the k's
     normaliser. A token the rules forbid there reads an infinite gap."""
     cands, finals, logits, top_i = _scores(
-        ref, wp, bpe, masks, state, col, last_slot, image, k, temperature,
-        alpha, beta, clip_len, extra=committed)
+        lm, match, masks, state, col, last_slot, image, k, temperature,
+        alpha, beta, extra=committed)
     B = state.shape[0]
     commit_gap, lm_gap = np.zeros(B), np.zeros(B)
     for b in range(B):
@@ -161,14 +156,12 @@ def judge_step(ref: Reference, wp: WordPiece, bpe: ClipBpe,
     return StepJudgement(commit_gap, lm_gap)
 
 
-def choose_step(ref: Reference, wp: WordPiece, bpe: ClipBpe,
-                masks: torch.Tensor, state: np.ndarray, col: int,
-                last_slot: bool, image: torch.Tensor, k: int,
-                temperature: float, alpha: float, beta: float,
-                clip_len: int) -> np.ndarray:
-    """(B,) the token ``ref`` commits at the step: its best combined
-    score over its own top k."""
-    cands, finals, _, _ = _scores(ref, wp, bpe, masks, state, col,
-                                  last_slot, image, k, temperature, alpha,
-                                  beta, clip_len)
+def choose_step(lm, match, masks: torch.Tensor, state: np.ndarray,
+                col: int, last_slot: bool, image: torch.Tensor, k: int,
+                temperature: float, alpha: float, beta: float
+                ) -> np.ndarray:
+    """(B,) the token ``lm`` and ``match`` commit at the step: the best
+    combined score over their own top k."""
+    cands, finals, _, _ = _scores(lm, match, masks, state, col, last_slot,
+                                  image, k, temperature, alpha, beta)
     return np.array([c[int(np.argmax(f))] for c, f in zip(cands, finals)])

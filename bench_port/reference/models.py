@@ -3,8 +3,9 @@ weights' type (float32), over a Hugging Face state dict.
 
 Written from the published architectures (``BertForMaskedLM``:
 post-LayerNorm blocks, erf GELU, the decoder tied to the word embeddings;
-``CLIPModel``: pre-LayerNorm blocks, quick GELU, a causal text tower pooled
-at its end token, a ViT with a class token), with no kernel, cache or
+``CLIPModel``: pre-LayerNorm blocks, the activation ``hidden_act`` names
+(quick GELU in OpenAI's, erf GELU in OpenCLIP's), a causal text tower
+pooled at its end token, a ViT with a class token), with no kernel, cache or
 batching trick. Matrix products run with TF32 off (the caller sets the
 flags; :func:`fp32_only` does). ``lowp`` makes it a control, the step
 below the configuration's bf16 put in the program's place: every matrix
@@ -23,6 +24,15 @@ import torch
 import torch.nn.functional as F
 
 Weights = Dict[str, torch.Tensor]
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+# a CLIP tower's MLP activation by its config's hidden_act, as Hugging
+# Face's ACT2FN names them ("gelu": the erf form)
+CLIP_ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": F.gelu}
 
 
 @contextlib.contextmanager
@@ -130,13 +140,14 @@ class Reference:
 
     def _clip_stack(self, x, prefix, cfg, keep):
         eps = cfg["layer_norm_eps"]
+        act = CLIP_ACTIVATIONS[cfg.get("hidden_act", "quick_gelu")]
         for i in range(cfg["num_hidden_layers"]):
             p = f"{prefix}.encoder.layers.{i}."
             x = x + self.attention(self.ln(x, p + "layer_norm1", eps), p,
                                    self.CLIP, cfg["num_attention_heads"],
                                    keep)
             h = self.linear(self.ln(x, p + "layer_norm2", eps), p + "mlp.fc1")
-            h = h * torch.sigmoid(1.702 * h)  # quick GELU
+            h = act(h)
             x = x + self.linear(h, p + "mlp.fc2")
         return x
 

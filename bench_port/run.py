@@ -7,8 +7,10 @@ Run from the root of a checkout. Everything is found by name from
 ``bench_port/configs/<config>.json``, its traffic in
 ``bench_port/traffic/<traffic>.json``, the limits of its correctness check
 in ``bench_port/limits/<cell>.json``, each per-layer metric's reader in
-``bench_port/metrics/<metric>.py`` and each kernel's counts in
-``bench_port/counts/<kernel>.py``.
+``bench_port/metrics/<metric>.py``, each kernel's counts in
+``bench_port/counts/<kernel>.py``, and the proposer's and the matcher's
+tower families in ``bench_port/families/<model_type>.py`` by the
+``model_type`` of the configuration's ``lm`` and ``match``.
 
 Set-up: the kernels are built (cached under ``build/`` in the checkout),
 the vocabularies and both towers' weights are made on the card from the
@@ -30,6 +32,13 @@ from __future__ import annotations
 import time
 
 _T0 = time.perf_counter()  # the process's start, for setup_s
+
+import os  # noqa: E402
+
+# one thread in each OpenMP and BLAS pool, set before torch and numpy load:
+# the process's only busy thread is the one that launches the kernels
+for _pool in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
+    os.environ.setdefault(_pool, "1")
 
 import argparse  # noqa: E402
 import gc  # noqa: E402
@@ -63,9 +72,11 @@ class Cell:
         w = found[0]
         self.root, self.name, self.chips = root, name, w["chips"]
         pkg = root / "bench_port"
-        self.config = load_json(pkg / "configs" / f"{w['config']}.json")
+        config_file = f"bench_port/configs/{w['config']}.json"
+        self.config = load_json(root / config_file)
         self.traffic = load_json(pkg / "traffic" / f"{w['traffic']}.json")
         self.limits = load_json(pkg / "limits" / f"{name}.json")
+        self.families = families(root, self.config, config_file)
 
         def mine(metric):
             return name in metric.get("workloads", [name])
@@ -81,6 +92,27 @@ def load_module(path: Path):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def families(root: Path, config: dict, source: str = "the configuration"
+             ) -> Dict[str, object]:
+    """The modules of the proposer's (``lm``) and the matcher's
+    (``match``) tower families, ``bench_port/families/<model_type>.py``
+    by each dict's ``model_type``. There is no default: a missing or
+    unknown one exits, naming the file looked for."""
+    found = {}
+    for role in ("lm", "match"):
+        name = config[role].get("model_type")
+        if name is None:
+            raise SystemExit(f"{source}: {role!r} names no model_type; its "
+                             "tower family is bench_port/families/"
+                             "<model_type>.py")
+        path = Path("bench_port") / "families" / f"{name}.py"
+        if not (Path(root) / path).is_file():
+            raise SystemExit(f"{source}: {role!r} is of model_type "
+                             f"{name!r}, and there is no {path}")
+        found[role] = load_module(Path(root) / path)
+    return found
 
 
 def metric_reader(root: Path, name: str):
@@ -127,27 +159,25 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         if on_card:
             torch.cuda.synchronize()
 
-    cfg, traffic = cell.config, cell.traffic
+    cfg, traffic, fams = cell.config, cell.traffic, cell.families
     seeds = inputs.Seeds(seed)
     if on_card:
         from conzic_torch.kernels import build
         build.build_all()
-    wp_vocab = inputs.wordpiece_vocab(cfg["lm"]["vocab_size"])
-    spec = inputs.bert_spec(cfg["lm"]) + inputs.clip_spec(cfg["match"])
+    vocab = {role: f.vocab(cfg) for role, f in fams.items()}
+    # the proposer's weights are drawn before the matcher's
+    spec = fams["lm"].spec(cfg) + fams["match"].spec(cfg)
 
     def weights():
-        return inputs.make_weights(spec, seeds.weights, dev,
-                                   cfg["weights"]["logit_scale"])
+        return inputs.make_weights(spec, seeds.weights, dev, cfg["weights"])
 
-    captioner = system.build(cfg, traffic, weights(), wp_vocab, dev)
+    captioner = system.build(cfg, traffic, fams, vocab, weights(), dev)
     driver = system.Driver(captioner, traffic)
-    vision = cfg["match"]["vision_config"]
     B = traffic["images_per_request"]
 
     def request(r: int, iterations: int = 0):
         px_seed, sched_seed = seeds.request(r)
-        px = inputs.pixels(px_seed, B, vision["image_size"],
-                           vision["num_channels"], dev)
+        px = fams["match"].pixels(cfg, px_seed, B, dev)
         return driver.request(px, px_seed, sched_seed, iterations)
 
     request(1 << 30, iterations=1)  # warm-up: every shape, one iteration
@@ -177,10 +207,12 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
             served.append(request(0))
             t_traced = time.perf_counter()
             out, tr = tracing.traced(
-                lambda: request(1), steps, request_flops(cfg, traffic), sync,
+                lambda: request(1), steps,
+                request_flops(cfg, traffic, fams), sync,
                 tracing.counts_modules(cell.root))
             served.append(out)
             t_last = time.perf_counter()
+            tr.weights_bytes = system.weights_bytes(captioner)
             seconds_of["traced request and its reduction"] = (
                 t_last - t_traced)
     except Exception:  # a failed request: reported, and not correct
@@ -216,7 +248,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     if on_card:
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    judge = check.Judge(cfg, traffic, wp_vocab, weights(), dev)
+    judge = check.Judge(cfg, traffic, fams, vocab, weights(), dev)
     numbers = judge.judge(served, seeds.check_rng())
     seconds_of["check"] = time.perf_counter() - t_check
     control_numbers = {p: judge.control(served, seeds.check_rng(), p)

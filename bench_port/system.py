@@ -5,20 +5,19 @@ constructors from the benchmark's inputs, and runs one request the way
 ``conzic_torch.api.run`` runs a batch and the web app's Submit callback
 (``conzic_torch.api.app.make_demo_fn``) runs an image: the image tower
 once, then ``generate_caption`` once per sample, which decodes the texts
-on the host. This is the only module of the benchmark that imports the
-program.
+on the host. This module and the tower families' ``program`` builders
+(``bench_port/families/``) are the only code of the benchmark that
+builds the program.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import tempfile
+import itertools
 from typing import Dict, List
 
 import numpy as np
 import torch
-
-from bench_port import inputs
 
 
 def program_config(config: dict, traffic: dict):
@@ -42,27 +41,37 @@ def program_config(config: dict, traffic: dict):
     return cfg
 
 
-def build(config: dict, traffic: dict, weights: Dict[str, torch.Tensor],
-          wp_vocab: Dict[str, int], device):
-    """The ``Captioner`` over the benchmark's vocabularies and weights."""
+def build(config: dict, traffic: dict, families: dict, vocab: dict,
+          weights: Dict[str, torch.Tensor], device):
+    """The ``Captioner`` over the benchmark's vocabularies and weights;
+    ``families`` and ``vocab``: the proposer's and the matcher's family
+    modules and vocabularies, by role ("lm", "match")."""
     from conzic_torch.engine.sampler import Captioner, build_towers
-    from conzic_torch.models.configs import BertConfig, CLIPConfig
     from conzic_torch.models.convert import from_hf_state_dict
-    from conzic_torch.text.bpe import CLIPBPETokenizer
-    from conzic_torch.text.wordpiece import WordPieceTokenizer
 
     cfg = program_config(config, traffic)
-    wp = WordPieceTokenizer(wp_vocab)
-    with tempfile.TemporaryDirectory(prefix="bench_port_bpe_") as d:
-        bpe = CLIPBPETokenizer.from_files(*inputs.write_bpe_files(
-            d, config["match"]["text_config"]["vocab_size"]))
-    bert_config = BertConfig.from_hf_dict(config["lm"])
-    clip_config = CLIPConfig.from_hf_dict(config["match"])
+    (lm_tok, lm_cfg), (match_tok, match_cfg) = (
+        families[r].program(config, vocab[r]) for r in ("lm", "match"))
     with torch.device(device):
-        bert, clip = build_towers(bert_config, clip_config, cfg)
-    from_hf_state_dict(bert, weights)
-    from_hf_state_dict(clip, weights)
-    return Captioner(bert, clip, wp, bpe, cfg, device)
+        lm, match = build_towers(lm_cfg, match_cfg, cfg)
+    from_hf_state_dict(lm, weights)
+    from_hf_state_dict(match, weights)
+    return Captioner(lm, match, lm_tok, match_tok, cfg, device)
+
+
+def weights_bytes(captioner) -> int:
+    """Bytes of the parameters and buffers of the captioner's towers as
+    the program holds them, each storage once (tied weights are one)."""
+    seen, total = set(), 0
+    for module in vars(captioner).values():
+        if not isinstance(module, torch.nn.Module):
+            continue
+        for t in itertools.chain(module.parameters(), module.buffers()):
+            storage = t.untyped_storage()
+            if storage.data_ptr() not in seen:
+                seen.add(storage.data_ptr())
+                total += storage.nbytes()
+    return total
 
 
 @dataclasses.dataclass

@@ -31,7 +31,8 @@ def test_cell_runs_correct_on_the_card(cell):
     need_card(c.chips)
     result = run.run(c, 2 ** 31 + 101, 3.0, False, "cuda")
     assert result["correct"] is True, result["checked"]
-    assert result["metrics"]["caps_per_s"]["value"] > 0
+    for m in c.end_to_end:
+        assert result["metrics"][m["name"]]["value"] > 0, m["name"]
 
 
 @pytest.mark.card

@@ -7,10 +7,15 @@ from pathlib import Path
 import pytest
 import torch
 
+from bench_port import run
 from bench_port.counts import layer_norm, masked_attention
-from bench_port.flops import request_flops
+from bench_port.flops import request_flops as flops_of
 
 PKG = Path(__file__).resolve().parents[1]
+
+
+def request_flops(config, traffic):
+    return flops_of(config, traffic, run.families(PKG.parent, config))
 
 
 def load(sub, name):

@@ -26,7 +26,7 @@ def tiny_reference(dtype):
     cfg["match"]["text_config"].update(TINY_TEXT)
     cfg["match"]["vision_config"].update(TINY_VISION)
     spec = inputs.bert_spec(cfg["lm"]) + inputs.clip_spec(cfg["match"])
-    w = inputs.make_weights(spec, 7, "cpu", 4.6052)
+    w = inputs.make_weights(spec, 7, "cpu", {"logit_scale": 4.6052})
     w = {k: v.to(dtype) for k, v in w.items()}
     bpe = ClipBpe(*inputs.clip_bpe(TINY_TEXT["vocab_size"]))
     return Reference(w, cfg["lm"], cfg["match"], bpe.eos), cfg, bpe
@@ -79,7 +79,7 @@ def test_every_caption_word_is_one_clip_piece_in_both_tokenizers(tmp_path):
 
     bpe = ClipBpe(*inputs.clip_bpe(49408))
     prog = CLIPBPETokenizer.from_files(
-        *inputs.write_bpe_files(str(tmp_path), 49408))
+        *inputs.write_bpe_files(str(tmp_path), inputs.clip_bpe(49408)))
     assert prog.vocab_size == 49408 and prog.eos_token_id == bpe.eos
     wp = WordPiece(inputs.wordpiece_vocab(30522))
     words = [body(t) for i, t in wp.tokens.items()

@@ -66,6 +66,7 @@ def test_traced_run_schema(tiny_root, one_thread, capsys):
     assert line["correct"] is True and line["attempted"] == 2
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
     assert line["device"]["window_s"] > 0
+    assert line["metrics"]["weights_gib"]["value"] > 0
 
 
 def test_no_card_no_result(tiny_root):
@@ -121,7 +122,40 @@ def test_control_tool_reads_sound_runs_and_controls(tmp_path, one_thread,
                    if x.get("kind") == "half_batch")
     # the fp8 reference in the program's place reads many times wider
     # than the program as configured does
-    for k in ("image_embed_err", "lm_gap_mean", "commit_gap_mean"):
+    for k in ("image_embed_err", "lm_gap_mean", "commit_gap_mean",
+              "commit_gap_step_median"):
         assert (summary["reference_fp8_min"][k]
                 >= 3 * summary["sound_max"][k]), k
     assert np.isfinite(summary["sound_max"]["commit_gap_mean"])
+
+
+def test_commit_gap_step_median_reads_past_one_tipped_step():
+    # ten steps of 32 commits: nine that commit the reference's best or
+    # near it, and one where a near-tie tipped for the whole batch
+    from bench_port.check import Tally
+
+    tally = Tally()
+    steps = [np.full(32, 1e-4)] * 9 + [np.full(32, 0.02)]
+    for gaps in steps:
+        tally.add("commit", gaps)
+        tally.add("commit_step", [np.mean(gaps)])
+    got = tally.readings()
+    assert got["commit_gap_mean"] == pytest.approx(0.1 * 0.02 + 0.9 * 1e-4)
+    assert got["commit_gap_step_median"] == pytest.approx(1e-4)
+    # a gap that is not finite in most steps (a forbidden token) stays so
+    tally.add("commit_step", [np.inf] * 12)
+    assert tally.readings()["commit_gap_step_median"] == np.inf
+
+
+def test_weights_bytes_counts_each_storage_once():
+    from bench_port import system
+
+    class Towers:
+        def __init__(self):
+            self.a, self.b = torch.nn.Linear(4, 4), torch.nn.Linear(4, 4)
+            self.b.weight = self.a.weight  # tied, as BERT's decoder is
+            self.b.register_buffer("ids", torch.zeros(3, dtype=torch.int64))
+            self.cfg = {"not": "a module"}
+
+    # a.weight 64, a.bias 16, b.bias 16, ids 24 bytes
+    assert system.weights_bytes(Towers()) == 64 + 16 + 16 + 24

@@ -33,6 +33,8 @@ class Trace:
     calls: Dict[str, List[dict]]  # counts module -> recorded calls
     model_flops: float  # the request's model operations (bench_port.flops)
     gaps: List[Tuple[str, float]]  # idle seconds by what the host ran
+    # the towers' parameters and buffers (bench_port.system.weights_bytes)
+    weights_bytes: int = 0
 
     def device_seconds(self, match: Callable[[str], bool]) -> float:
         return sum(e - s for s, e, n in self.kernels if match(n)) / 1e6
