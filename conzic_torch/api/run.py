@@ -101,12 +101,13 @@ def iter_image_batches(dir_path: str, batch_size: int, logger,
         yield imgs, batch_names
 
 
-def host_pipeline(batch, image_size: int):
-    """Decoded images -> (NHWC pixels, names), in a span so that a
-    ``CONZIC_TRACE_DIR`` trace shows the host stage beside the card's."""
+def host_pipeline(batch, image_size: int, kind: str = "clip"):
+    """Decoded images -> (NHWC pixels, names), preprocessed as the
+    matcher's ``kind`` ("clip" or "siglip") takes them, in a span so that
+    a ``CONZIC_TRACE_DIR`` trace shows the host stage beside the card's."""
     imgs, names = batch
     with profiling.span("entry.preprocess"):
-        return preprocess_batch_pil(imgs, image_size), names
+        return preprocess_batch_pil(imgs, image_size, kind=kind), names
 
 
 def accumulate(all_results, img_names, gen_texts):
@@ -145,7 +146,8 @@ def caption_batches(cfg, captioner, batches, logger, rng, workers=1,
     multi-process run). Returns the trees written."""
     run_type = run_type_label(cfg)
     pipeline = functools.partial(
-        host_pipeline, image_size=captioner.clip_model.config.vision.image_size)
+        host_pipeline, image_size=captioner.clip_model.config.vision.image_size,
+        kind=captioner.clip_model.preprocessing)
     save_dirs = []
     for sample_id in range(cfg.samples_num):
         all_results = [None] * (cfg.num_iterations + 1)

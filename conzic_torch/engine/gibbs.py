@@ -20,6 +20,13 @@ an optional pre-cut, each cut ranked by the surrogate cosine or by the
 whole combined score. ``spec.final_exact`` makes the last iteration a
 full-parity sweep over the pruned state.
 
+A bidirectional matcher (SigLIP, ``spec.bidirectional``) attends every
+position of a row and pools the last, so no part of a candidate row can be
+computed once for all: its rows are assembled at the fixed ``clip_len`` and
+encoded whole, chunk by chunk (:func:`_encode_full_rows`), with no prompt
+K/V, no prefix form and no window. The candidates' matcher logits go into
+the same softmax over k.
+
 The exact host modes run in the same loop. ``bridge_mode="exact"`` builds
 the candidate CLIP rows by the reference's decode -> re-tokenize
 (:func:`host_bridge_fn`), and ``ctl_mode="exact"`` scores every decoded
@@ -44,6 +51,7 @@ import torch
 from conzic_torch import energies
 from conzic_torch.eval.pos_eval import batch_texts_pos_analysis
 from conzic_torch.eval.sentiment_eval import batch_texts_sentiment_scores
+from conzic_torch.models import siglip
 from conzic_torch.models.bert import BertForMaskedLM
 from conzic_torch.models.clip import CLIPModel, TruncatedTextTower
 from conzic_torch.runtime.profiling import span
@@ -61,7 +69,7 @@ class EngineSpec:
     candidate_k: int
     clip_len: int
     mask_token_id: int
-    clip_bos_id: int
+    clip_bos_id: Optional[int]  # None: the matcher's rows have no BOS
     clip_eos_id: int
     clip_pad_id: int
     # ((prefix_len, n_steps), ...): the position sweep cut into chunks whose
@@ -90,6 +98,9 @@ class EngineSpec:
     clip_window: int = 0  # encode over this many columns when rows fit
     topk_chunk: int = 2048  # exact_topk_2stage's block width
     mask_impl: str = "gather"  # gather | compare (banned-id lists)
+    # the matcher's text tower attends every position (SigLIP): candidate
+    # rows run whole, with no prefix K/V, no window and no padding
+    bidirectional: bool = False
 
 
 def _decode(decoder, inner: torch.Tensor) -> List[str]:
@@ -160,6 +171,21 @@ def row_chunk_width(B: int, k: int, row_chunk: int) -> int:
     return kc
 
 
+def _encode_full_rows(spec: EngineSpec, match, ids: torch.Tensor
+                      ) -> torch.Tensor:
+    """(B, k, L) candidate rows of a bidirectional matcher -> (B*k, D):
+    every row whole, in chunks of at most ``spec.clip_row_chunk`` rows."""
+    B, k, L = ids.shape
+    kc = row_chunk_width(B, k, spec.clip_row_chunk)
+    embs = []
+    for c in range(0, k, kc):
+        with span("towers.match_text"):
+            rows = ids[:, c:c + kc].reshape(-1, L)
+            embs.append(siglip.encode_full_rows(match, rows).reshape(
+                B, kc, -1))
+    return torch.cat(embs, dim=1).reshape(B * k, -1)
+
+
 def _encode_candidates(spec: EngineSpec, clip: CLIPModel,
                        clip_ids: torch.Tensor, clip_mask: torch.Tensor,
                        prefix_len: int, prefix_kvs: Optional[List] = None,
@@ -175,7 +201,10 @@ def _encode_candidates(spec: EngineSpec, clip: CLIPModel,
     ``s1`` = (truncated tower, wcal): the factorized stage-1 encode, each
     chunk's pooled rows in fp32 times the calibrated projection ``wcal``
     (H, D). The truncated tower reads the first layers of the full tower's
-    prefix K/V."""
+    prefix K/V. A bidirectional matcher's rows go to
+    :func:`_encode_full_rows`."""
+    if spec.bidirectional:
+        return _encode_full_rows(spec, clip, clip_ids)
     if spec.clip_pad_to > clip_ids.shape[-1]:
         extra = spec.clip_pad_to - clip_ids.shape[-1]
         clip_ids = torch.nn.functional.pad(clip_ids, (0, extra),

@@ -66,13 +66,20 @@ from conzic_torch.models.checkpoint import (
     load_tiny_checkpoint,
 )
 from conzic_torch.models.clip import CLIPModel, TruncatedTextTower
-from conzic_torch.models.configs import BertConfig, CLIPConfig, load_hf_config
+from conzic_torch.models.configs import (
+    BertConfig,
+    CLIPConfig,
+    SiglipConfig,
+    load_hf_config,
+)
 from conzic_torch.models.convert import (
     from_hf_state_dict,
     from_jax_params,
     load_bert,
     load_clip,
 )
+from conzic_torch.models.siglip import SiglipModel
+from conzic_torch.ops.attention import XLA_IMPLS
 from conzic_torch.parallel import distributed
 from conzic_torch.parallel.mesh import (
     data_devices,
@@ -93,6 +100,7 @@ from conzic_torch.text.lexicons import (
     template_matrix,
 )
 from conzic_torch.text.roberta_bpe import RobertaBPETokenizer
+from conzic_torch.text.unigram import SiglipTokenizer
 from conzic_torch.text.vocab import (
     build_token_masks,
     load_stop_words_file,
@@ -158,16 +166,29 @@ def tower_quants(quant: str) -> tuple:
     return bert_q, clip_q
 
 
-def build_towers(bert_config: BertConfig, clip_config: CLIPConfig,
+def build_towers(bert_config: BertConfig,
+                 clip_config: Union[CLIPConfig, SiglipConfig],
                  config: ConzicConfig):
     """Both towers, empty, in the config's compute type, attention route
-    and quant tier."""
+    and quant tier; the matcher a ``CLIPModel``, or a ``SiglipModel`` for
+    a :class:`SiglipConfig`, which runs on the library route unquantized
+    and refuses the rest."""
     dtype = _DTYPES[config.dtype]
     bert_q, clip_q = tower_quants(config.quant)
-    return (BertForMaskedLM(bert_config, dtype=dtype,
-                            attn_impl=config.attn_impl, quant=bert_q),
-            CLIPModel(clip_config, dtype=dtype, attn_impl=config.attn_impl,
-                      quant=clip_q))
+    bert = BertForMaskedLM(bert_config, dtype=dtype,
+                           attn_impl=config.attn_impl, quant=bert_q)
+    if not isinstance(clip_config, SiglipConfig):
+        return bert, CLIPModel(clip_config, dtype=dtype,
+                               attn_impl=config.attn_impl, quant=clip_q)
+    if config.quant != "none":
+        raise ValueError(f"quant={config.quant!r} with a SigLIP matcher: "
+                         "the int8 tiers take a CLIP matcher only")
+    if config.attn_impl not in XLA_IMPLS:
+        raise ValueError(f"attn_impl={config.attn_impl!r} with a SigLIP "
+                         "matcher: the attention kernels take a CLIP "
+                         f"matcher only; use one of {XLA_IMPLS}")
+    return bert, SiglipModel(clip_config, dtype=dtype,
+                             attn_impl=config.attn_impl)
 
 
 def random_init_(modules: List[nn.Module], seed: int,
@@ -203,13 +224,17 @@ class GenerationResult:
 
 
 class Captioner:
-    def __init__(self, bert_model: BertForMaskedLM, clip_model: CLIPModel,
-                 wp: WordPieceTokenizer, bpe: CLIPBPETokenizer,
+    def __init__(self, bert_model: BertForMaskedLM,
+                 clip_model: Union[CLIPModel, SiglipModel],
+                 wp: WordPieceTokenizer,
+                 bpe: Union[CLIPBPETokenizer, SiglipTokenizer],
                  config: Optional[ConzicConfig] = None,
                  device: Union[str, torch.device] = "cuda", mesh=None):
-        """``mesh``: a data mesh (``parallel.mesh.make_mesh``, a list of
-        devices) or a (data, model) mesh (``make_mesh_2d``, a list of
-        rows); the captioner's own device is then the mesh's first."""
+        """``clip_model`` and ``bpe``: the matcher and its tokenizer,
+        CLIP's or SigLIP's. ``mesh``: a data mesh
+        (``parallel.mesh.make_mesh``, a list of devices) or a (data, model)
+        mesh (``make_mesh_2d``, a list of rows); the captioner's own device
+        is then the mesh's first."""
         self.cfg = config or ConzicConfig()
         self.cfg.validate()
         self.mesh = mesh
@@ -250,11 +275,12 @@ class Captioner:
         self.bert_model = bert_model.to(dev).eval().requires_grad_(False)
         self.clip_model = clip_model.to(dev).eval().requires_grad_(False)
         if self.cfg.param_dtype == "bfloat16":
-            # logit_scale stays in its type: similarity exponentiates it
+            # logit_scale (and SigLIP's logit_bias) stay in their type:
+            # similarity exponentiates the scale
             for model in (self.bert_model, self.clip_model):
                 for name, p in model.named_parameters():
-                    if (p.dtype == torch.float32
-                            and not name.endswith("logit_scale")):
+                    if (p.dtype == torch.float32 and not name.endswith(
+                            ("logit_scale", "logit_bias"))):
                         p.data = p.data.to(torch.bfloat16)
         self._replicas = self._make_replicas()
 
@@ -366,7 +392,9 @@ class Captioner:
         ``config.lm_model`` (HF BERT or RoBERTa masked LM) and
         ``config.match_model`` (HF CLIP). A directory of the JAX package's
         trained checkpoints (``conzic_tiny.json``) carries both towers and
-        goes to :meth:`from_tiny_dir`."""
+        goes to :meth:`from_tiny_dir`. A ``match_model`` directory of
+        ``model_type`` "siglip" gives a SigLIP matcher and its Unigram
+        tokenizer (``tokenizer.json``)."""
         if is_tiny_checkpoint(config.lm_model):
             # a trained directory holds both towers: a different
             # match_model would be silently replaced by its CLIP
@@ -390,7 +418,10 @@ class Captioner:
             wp = RobertaBPETokenizer.from_pretrained(config.lm_model)
         else:
             wp = WordPieceTokenizer.from_pretrained(config.lm_model)
-        bpe = CLIPBPETokenizer.from_pretrained(config.match_model)
+        if isinstance(clip_config, SiglipConfig):
+            bpe = SiglipTokenizer.from_pretrained(config.match_model)
+        else:
+            bpe = CLIPBPETokenizer.from_pretrained(config.match_model)
         return cls(bert, clip, wp, bpe, config, device, mesh)
 
     @classmethod
@@ -422,7 +453,8 @@ class Captioner:
         back on every process. In one process it changes nothing."""
         if isinstance(pixels, (list, tuple)):
             pixels = preprocess_batch_pil(
-                pixels, self.clip_model.config.vision.image_size)
+                pixels, self.clip_model.config.vision.image_size,
+                kind=self.clip_model.preprocessing)
         if not isinstance(pixels, torch.Tensor):
             pixels = torch.tensor(np.asarray(pixels, np.float32))
         if pixels.dim() == 3:
@@ -735,7 +767,10 @@ class Captioner:
                              "(expected gather | compare)")
         row_chunk = self.cfg.clip_row_chunk
         budget = self.cfg.clip_token_budget
-        if row_chunk and budget and self.cfg.clip_len > 48:
+        bidirectional = self.clip_model.bidirectional
+        if bidirectional:
+            self._check_bidirectional()
+        elif row_chunk and budget and self.cfg.clip_len > 48:
             row_chunk = min(row_chunk, max(1, budget // self.cfg.clip_len))
         return EngineSpec(
             seed_len=seed_len,
@@ -747,10 +782,11 @@ class Captioner:
             clip_bos_id=self.bridge.bos_id,
             clip_eos_id=self.bridge.eos_id,
             clip_pad_id=self.bridge.pad_id,
-            # the exact bridge's rows share no provable prefix
-            prefix_chunks=None if exact else prefix_chunks,
+            # the exact bridge's rows share no provable prefix, nor do a
+            # bidirectional matcher's
+            prefix_chunks=None if exact or bidirectional else prefix_chunks,
             clip_row_chunk=row_chunk,
-            clip_pad_to=self._clip_pad_to(),
+            clip_pad_to=0 if bidirectional else self._clip_pad_to(),
             order_kind=order_kind,
             ctl=ctl,
             negative=negative,
@@ -766,10 +802,26 @@ class Captioner:
             # "auto" and "on" alike: only controlled pruned runs rank so
             stage1_ctl=(self.cfg.prune_stage1_ctl != "off"
                         and ctl is not None and prune_k is not None),
-            clip_window=self._clip_window(),
+            clip_window=0 if bidirectional else self._clip_window(),
             topk_chunk=self.cfg.topk_chunk,
             mask_impl=self.cfg.mask_impl,
+            bidirectional=bidirectional,
         )
+
+    def _check_bidirectional(self) -> None:
+        """A bidirectional matcher's rows are its fixed length and run
+        whole: ``clip_len`` must be the text tower's positions, and the
+        window, which trims rows, is refused."""
+        L = self.clip_model.config.text.max_position_embeddings
+        if self.cfg.clip_len != L:
+            raise ValueError(
+                f"clip_len={self.cfg.clip_len} with a SigLIP matcher: its "
+                f"text tower pools the last of its {L} positions, so rows "
+                f"are {L} long; set clip_len={L}")
+        if self.cfg.clip_window:
+            raise ValueError("clip_window with a SigLIP matcher: its text "
+                             "tower attends every position, so rows run "
+                             "whole")
 
     def _ensure_prune_tables(self, prune_k: Optional[int]) -> None:
         """The tables this run's tier reads, built on first use."""
@@ -818,6 +870,9 @@ class Captioner:
         prune_final_exact = prune_final_exact or self.cfg.prune_final_exact
         if prune_k is not None and prune_k >= top_k:
             prune_k = None
+        if prune_k is not None and self.clip_model.bidirectional:
+            raise ValueError("prune_k with a SigLIP matcher: the pruned "
+                             "tiers take a CLIP matcher only")
         self._ensure_prune_tables(prune_k)
         init_row = self.init_ids(prompt, max_len, 1)
         seed_len = init_row.shape[1] - max_len - 1

@@ -1,1 +1,1 @@
-"""Model towers: BERT masked LM and CLIP."""
+"""Model towers: BERT masked LM, CLIP and SigLIP."""

@@ -160,7 +160,13 @@ class CLIPVisionTower(nn.Module):
 class CLIPModel(nn.Module):
     """Dual tower + projections + ``logit_scale`` (kept in its stored type,
     exponentiated there as the flax model does). ``quant`` applies to the
-    text tower only (the candidate scoring), as in the reference."""
+    text tower only (the candidate scoring), as in the reference.
+    ``bidirectional``: False, its text tower is causal, so candidate rows
+    may share the prompt's K/V; ``preprocessing``: CLIP's image
+    statistics."""
+
+    bidirectional = False
+    preprocessing = "clip"
 
     def __init__(self, config: CLIPConfig,
                  dtype: torch.dtype = torch.float32,

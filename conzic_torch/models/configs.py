@@ -5,7 +5,9 @@ Mirrors the architectures the reference loads from HuggingFace at
 ``AutoModelForMaskedLM``) and ``reference clip/clip.py:12``
 (``openai/clip-vit-base-patch32`` via ``CLIPModel``), re-specified here as
 plain dataclasses so the rebuild carries no torch/transformers dependency in
-its compute path.
+its compute path. :class:`SiglipConfig` is the port's own second matcher,
+``google/siglip-so400m-patch14-384``'s family, which the reference does
+not load.
 """
 
 from __future__ import annotations
@@ -193,6 +195,114 @@ class CLIPConfig:
             projection_dim=d["projection_dim"],
             logit_scale_init=d.get("logit_scale_init_value", 4.6052),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class SiglipTextConfig:
+    """SigLIP text tower: bidirectional over a fixed row of
+    ``max_position_embeddings`` SentencePiece ids, pooled at the last
+    position, then a linear head. Defaults: Hugging Face's
+    ``SiglipTextConfig``."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 64
+    layer_norm_eps: float = 1e-6
+    hidden_act: str = "gelu_pytorch_tanh"
+    projection_size: int = 768
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class SiglipVisionConfig:
+    """SigLIP vision tower: patches with no class token, a post-LayerNorm
+    and an attention-pooling head. Defaults: Hugging Face's
+    ``SiglipVisionConfig``."""
+
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    image_size: int = 224
+    patch_size: int = 16
+    num_channels: int = 3
+    layer_norm_eps: float = 1e-6
+    hidden_act: str = "gelu_pytorch_tanh"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+
+@dataclasses.dataclass(frozen=True)
+class SiglipConfig:
+    """SigLIP (Zhai et al., arXiv 2303.15343): the two towers, and the
+    scores ``exp(logit_scale) * cos + logit_bias``. Hugging Face's config
+    holds no values of the two scalars; they start at the paper's
+    initialisation, ln 10 and -10, until a checkpoint's replace them."""
+
+    text: SiglipTextConfig = dataclasses.field(
+        default_factory=SiglipTextConfig)
+    vision: SiglipVisionConfig = dataclasses.field(
+        default_factory=SiglipVisionConfig)
+    logit_scale_init: float = 2.302585092994046
+    logit_bias_init: float = -10.0
+
+    @staticmethod
+    def tiny() -> "SiglipConfig":
+        """Two layers of two heads of 72, the published head size."""
+        return SiglipConfig(
+            text=SiglipTextConfig(vocab_size=512, hidden_size=144,
+                                  num_layers=2, num_heads=2,
+                                  intermediate_size=176,
+                                  projection_size=144),
+            vision=SiglipVisionConfig(hidden_size=144, num_layers=2,
+                                      num_heads=2, intermediate_size=176,
+                                      image_size=56, patch_size=14))
+
+    @staticmethod
+    def from_hf_dict(d: dict) -> "SiglipConfig":
+        """``SiglipConfig``'s dict, each tower's missing keys at Hugging
+        Face's defaults (``projection_size``: the text width)."""
+        text = _from_hf(SiglipTextConfig, d["text_config"])
+        if not d["text_config"].get("projection_size"):
+            text = dataclasses.replace(text,
+                                       projection_size=text.hidden_size)
+        return SiglipConfig(text=text,
+                            vision=_from_hf(SiglipVisionConfig,
+                                            d["vision_config"]))
+
+
+# Hugging Face's names of the fields the port names otherwise
+_HF_NAMES = {"num_layers": "num_hidden_layers",
+             "num_heads": "num_attention_heads"}
+
+
+def _from_hf(cls, d: dict):
+    """``cls`` from a Hugging Face tower dict: each field under its own or
+    its Hugging Face name, else at its default."""
+    return cls(**{f.name: d[_HF_NAMES.get(f.name, f.name)]
+                  for f in dataclasses.fields(cls)
+                  if _HF_NAMES.get(f.name, f.name) in d})
+
+
+def matcher_config_from_hf_dict(d: dict):
+    """The matcher's config from its Hugging Face dict: a
+    :class:`SiglipConfig` for ``model_type`` "siglip", else a
+    :class:`CLIPConfig`."""
+    if d.get("model_type") == "siglip":
+        return SiglipConfig.from_hf_dict(d)
+    return CLIPConfig.from_hf_dict(d)
 
 
 def load_hf_config(path: str) -> dict:

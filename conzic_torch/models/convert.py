@@ -4,7 +4,8 @@ state dicts; and port modules -> ``conzic_tpu`` parameter trees
 
 ``from_hf_state_dict`` (at the end of this file) loads the HF checkpoints
 that ``Captioner.from_pretrained`` reads, as ``conzic_tpu/models/convert.py``
-does for the JAX package.
+does for the JAX package, and SigLIP's (``SiglipModel``), which the JAX
+package does not hold.
 
 The inverse direction of ``conzic_tpu/models/convert.py``: ``from_jax_params``
 takes the flax parameter tree of a ``conzic_tpu`` model (nested dicts of
@@ -25,7 +26,7 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,13 +34,20 @@ from torch import nn
 
 from conzic_torch.models.bert import BertForMaskedLM
 from conzic_torch.models.clip import CLIPModel, CLIPTextTower, CLIPVisionTower
-from conzic_torch.models.configs import BertConfig, CLIPConfig, load_hf_config
+from conzic_torch.models.configs import (
+    BertConfig,
+    CLIPConfig,
+    SiglipConfig,
+    load_hf_config,
+    matcher_config_from_hf_dict,
+)
 from conzic_torch.models.layers import (
     LayerNorm,
     Linear,
     MultiHeadAttention,
     TransformerStack,
 )
+from conzic_torch.models.siglip import SiglipModel
 
 
 def _tensor(a) -> torch.Tensor:
@@ -330,6 +338,36 @@ _CLIP_OTHER = {
 }
 
 
+# SigLIP: its encoder layers are named as CLIP's
+_SIGLIP_OTHER = {
+    "text_model.token_embedding": (
+        "text_model.embeddings.token_embedding.weight",),
+    "text_model.position_embedding": (
+        "text_model.embeddings.position_embedding.weight",),
+    "text_model.final_ln": ("text_model.final_layer_norm",),
+    "text_model.head": ("text_model.head",),
+    "vision_model.patch_embedding": (
+        "vision_model.embeddings.patch_embedding.weight",),
+    "vision_model.patch_bias": (
+        "vision_model.embeddings.patch_embedding.bias",),
+    "vision_model.position_embedding": (
+        "vision_model.embeddings.position_embedding.weight",),
+    "vision_model.post_ln": ("vision_model.post_layernorm",),
+    # the pooling head's nn.MultiheadAttention is "attention"
+    "vision_model.head.probe": ("vision_model.head.probe",),
+    "vision_model.head.in_proj_weight": (
+        "vision_model.head.attention.in_proj_weight",),
+    "vision_model.head.in_proj_bias": (
+        "vision_model.head.attention.in_proj_bias",),
+    "vision_model.head.out_proj": ("vision_model.head.attention.out_proj",),
+    "vision_model.head.layernorm": ("vision_model.head.layernorm",),
+    "vision_model.head.mlp.fc1": ("vision_model.head.mlp.fc1",),
+    "vision_model.head.mlp.fc2": ("vision_model.head.mlp.fc2",),
+    "logit_scale": ("logit_scale",),
+    "logit_bias": ("logit_bias",),
+}
+
+
 def _leaf(name: str) -> tuple:
     """A port parameter name -> (module path, HF suffix): LayerNorm's
     ``scale`` is HF's ``weight``; an embedding table has no suffix (its
@@ -352,8 +390,8 @@ def _hf_prefix(sd: Mapping) -> str:
 def hf_names(module: nn.Module, name: str, prefix: str = "bert.") -> tuple:
     """The HF state-dict names of the port parameter ``name`` of
     ``module`` (a :class:`BertForMaskedLM` whose HF names start with
-    ``prefix``, or a :class:`CLIPModel`), in the order they are looked
-    up."""
+    ``prefix``, a :class:`CLIPModel` or a :class:`SiglipModel`), in the
+    order they are looked up."""
     path, suffix = _leaf(name)
     if isinstance(module, BertForMaskedLM):
         if path in _BERT_EMBEDDINGS:
@@ -364,9 +402,10 @@ def hf_names(module: nn.Module, name: str, prefix: str = "bert.") -> tuple:
                          (roberta if prefix == "roberta." else bert))
         _, _, i, rest = path.split(".", 3)  # encoder.layers.{i}.{rest}
         return (f"{prefix}encoder.layer.{i}.{_BERT_LAYER[rest]}{suffix}",)
-    if isinstance(module, CLIPModel):
-        if path in _CLIP_OTHER:
-            return tuple(n + suffix for n in _CLIP_OTHER[path])
+    if isinstance(module, (CLIPModel, SiglipModel)):
+        other = _CLIP_OTHER if isinstance(module, CLIPModel) else _SIGLIP_OTHER
+        if path in other:
+            return tuple(n + suffix for n in other[path])
         tower, _, _, i, rest = path.split(".", 4)
         return (f"{tower}.encoder.layers.{i}.{_CLIP_LAYER[rest]}{suffix}",)
     raise TypeError(f"hf_names: no layout for {type(module)}")
@@ -381,8 +420,8 @@ def from_hf_state_dict(module: nn.Module, sd: Mapping) -> nn.Module:
         key = next((n for n in names if n in sd), None)
         if key is None:
             raise KeyError(f"the checkpoint has none of {names} for "
-                           f"{name} (not a *ForMaskedLM / CLIPModel "
-                           f"export?)")
+                           f"{name} (not a *ForMaskedLM / CLIPModel / "
+                           f"SiglipModel export?)")
         _set(param, _tensor(sd[key]).reshape(param.shape))
     return module
 
@@ -442,7 +481,9 @@ def load_bert(checkpoint_dir: str) -> Tuple[BertConfig, Dict]:
     return config, load_state_dict(checkpoint_dir)
 
 
-def load_clip(checkpoint_dir: str) -> Tuple[CLIPConfig, Dict]:
-    """(config, state dict) of an HF CLIP directory."""
-    config = CLIPConfig.from_hf_dict(load_hf_config(checkpoint_dir))
+def load_clip(checkpoint_dir: str
+              ) -> Tuple[Union[CLIPConfig, SiglipConfig], Dict]:
+    """(config, state dict) of an HF CLIP or SigLIP directory, told apart
+    by its config's ``model_type``."""
+    config = matcher_config_from_hf_dict(load_hf_config(checkpoint_dir))
     return config, load_state_dict(checkpoint_dir)

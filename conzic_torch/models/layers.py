@@ -58,6 +58,8 @@ ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     # CLIP's, through the quick_gelu kernel; read from this module at call
     # time, as LayerNorm.forward reads layer_norm
     "quick_gelu": lambda x: quick_gelu(x),
+    # SigLIP's: the tanh approximation
+    "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh"),
 }
 
 

@@ -1,10 +1,12 @@
-"""CLIP image preprocessing.
+"""CLIP's and SigLIP's image preprocessing.
 
 Counterpart of ``conzic_tpu/runtime/image.py``, with the semantics of HF's
 ``CLIPImageProcessor``: resize the shortest edge to ``image_size``
 (bicubic), center-crop ``image_size``, rescale by 1/255 and normalise with
 the CLIP mean and std. Output is NHWC float32, the layout the port's vision
-tower takes.
+tower takes. ``kind="siglip"``: HF's ``SiglipImageProcessor``, a bicubic
+resize of the whole image to ``image_size`` square (no crop), rescaled by
+1/255 and normalised with mean and std 0.5 (host path only).
 
 Two paths:
   - ``preprocess_pil`` / ``preprocess_batch_pil``: on the host with PIL's
@@ -26,14 +28,23 @@ import torch.nn.functional as F
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+SIGLIP_MEAN = SIGLIP_STD = np.array([0.5, 0.5, 0.5], np.float32)
 
 
-def preprocess_pil(image, image_size: int = 224) -> np.ndarray:
-    """PIL image -> (H, W, C) float32."""
+def preprocess_pil(image, image_size: int = 224,
+                   kind: str = "clip") -> np.ndarray:
+    """PIL image -> (H, W, C) float32, as ``kind`` ("clip" or "siglip")
+    preprocesses."""
     from PIL import Image
 
     if image.mode != "RGB":
         image = image.convert("RGB")
+    if kind == "siglip":
+        image = image.resize((image_size, image_size), Image.BICUBIC)
+        arr = np.asarray(image, np.float32) / 255.0
+        return (arr - SIGLIP_MEAN) / SIGLIP_STD
+    if kind != "clip":
+        raise ValueError(f"unknown preprocessing {kind!r}")
     w, h = image.size
     short, long = (w, h) if w <= h else (h, w)
     # HF truncates the long side, it does not round
@@ -48,7 +59,7 @@ def preprocess_pil(image, image_size: int = 224) -> np.ndarray:
 
 
 def preprocess_batch_pil(images, image_size: int = 224,
-                         workers: int = 0) -> np.ndarray:
+                         workers: int = 0, kind: str = "clip") -> np.ndarray:
     """(B, H, W, C) float32 from PIL images. ``workers`` > 1 runs a thread
     pool (PIL's resize releases the GIL); 0 = auto: threads for batches of
     8 or more images on a host with several cores, else serial."""
@@ -57,12 +68,13 @@ def preprocess_batch_pil(images, image_size: int = 224,
         workers = min(16, ncpu, len(images)) if (
             len(images) >= 8 and ncpu > 1) else 1
     if workers <= 1 or len(images) <= 1:
-        return np.stack([preprocess_pil(im, image_size) for im in images])
+        return np.stack([preprocess_pil(im, image_size, kind)
+                         for im in images])
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(max_workers=workers) as pool:
-        outs = list(pool.map(lambda im: preprocess_pil(im, image_size),
-                             images))
+        outs = list(pool.map(
+            lambda im: preprocess_pil(im, image_size, kind), images))
     return np.stack(outs)
 
 

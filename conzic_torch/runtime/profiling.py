@@ -19,13 +19,17 @@ Counterpart of ``conzic_tpu/runtime/profiling.py``:
 The spans of a generation, each under the one before it in time:
 ``engine.generate`` > ``engine.prefix_kv``, ``engine.iteration`` >
 ``engine.step`` > ``towers.lm``, ``engine.candidates``,
-``towers.text_chunk``, ``engine.commit``; then ``engine.fetch`` and
-``engine.decode``. The span and parallel orders run ``towers.lm`` once a
+``towers.text_chunk`` (``towers.match_text`` under a bidirectional
+matcher, SigLIP's: one a chunk of whole rows), ``engine.commit``; then
+``engine.fetch`` and ``engine.decode``. The span and parallel orders run ``towers.lm`` once a
 span or sweep, beside the steps. ``entry.encode_images`` runs the image
 tower, ``entry.preprocess`` a batch's preprocessing on the command line's
-worker thread. The one counter, ``towers.weight_casts``, counts the
+worker thread; inside the image tower, SigLIP's runs as
+``towers.match_image``. The counters: ``towers.weight_casts``, the
 parameters cast to the compute type on a call (``models/layers.py``
-``cast_param``).
+``cast_param``); ``towers.match_text_positions``, the positions a
+bidirectional matcher's text tower encodes, rows times their width a
+chunk (``models/siglip.py`` ``encode_full_rows``).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch
 
 PREFIX = "conzic."
 WEIGHT_CASTS = "towers.weight_casts"
+MATCH_TEXT_POSITIONS = "towers.match_text_positions"
 
 _lock = threading.Lock()
 _live = 0  # request spans and traces open while a profiler records
@@ -80,12 +85,12 @@ def span(name: str):
     return torch.profiler.record_function(PREFIX + name)
 
 
-def count(name: str) -> None:
-    """Add one to the counter ``name`` while the spans are live. Under a
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while the spans are live. Under a
     lock: a mesh runs its blocks on threads of one process."""
     if _on:
         with _lock:
-            _counts[name] = _counts.get(name, 0) + 1
+            _counts[name] = _counts.get(name, 0) + n
 
 
 def take_counts() -> Dict[str, int]:

@@ -1,46 +1,48 @@
-"""BERT-id -> CLIP-id bridge: candidate sentence assembly on the device.
+"""BERT-id -> matcher-id bridge: candidate sentence assembly on the device.
 
 Counterpart of ``conzic_tpu/text/bridge.py``. The table (built once per
-vocabulary pair, in numpy) holds the CLIP BPE ids of every BERT wordpiece
-taken as a standalone word; candidate CLIP rows are then assembled from it
-with tensor ops, so no candidate goes through a host decode and
+vocabulary pair, in numpy) holds the matcher tokenizer's ids of every BERT
+wordpiece taken as a standalone word; candidate rows are then assembled
+from it with tensor ops, so no candidate goes through a host decode and
 re-tokenize. ``##`` continuation pieces are bridged as if they started a
-word, exactly as in the reference package.
+word, exactly as in the reference package. A row is BOS, the pieces, EOS,
+then padding: CLIP's BPE; a tokenizer with no start token (SigLIP's
+Unigram, ``bos_token_id`` None) starts the row with the pieces.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from conzic_torch.text.bpe import CLIPBPETokenizer
 from conzic_torch.text.vocab import token_body
 from conzic_torch.text.wordpiece import WordPieceTokenizer
 
 
 @dataclasses.dataclass
 class BridgeTable:
-    """Per-BERT-token CLIP pieces.
+    """Per-BERT-token matcher pieces.
 
-    ids:  (V, M) int32 — CLIP ids, zero-padded.
+    ids:  (V, M) int32 — matcher ids, zero-padded.
     lens: (V,)  int32 — number of valid pieces (0 for specials).
+    bos_id: the start token, None where the matcher's rows have none.
     """
 
     ids: np.ndarray
     lens: np.ndarray
-    bos_id: int
+    bos_id: Optional[int]
     eos_id: int
     pad_id: int
     max_pieces: int
 
 
-def build_bridge_table(wp: WordPieceTokenizer,
-                       bpe: CLIPBPETokenizer) -> BridgeTable:
-    """The table is as wide as the longest piece sequence in the
-    vocabulary, so no token is truncated."""
+def build_bridge_table(wp: WordPieceTokenizer, bpe) -> BridgeTable:
+    """``bpe``: the matcher's tokenizer (``CLIPBPETokenizer`` or
+    ``SiglipTokenizer``). The table is as wide as the longest piece
+    sequence in the vocabulary, so no token is truncated."""
     special = set(wp.special_tokens)
     all_pieces = {}
     for tok, i in wp.vocab.items():
@@ -60,24 +62,32 @@ def build_bridge_table(wp: WordPieceTokenizer,
                        max_pieces=width)
 
 
+def _lead(bos_id: Optional[int]) -> int:
+    """Slots before the first piece: 1 for a BOS, else 0."""
+    return 0 if bos_id is None else 1
+
+
 def _frame(val: torch.Tensor, total: torch.Tensor, j: torch.Tensor, *,
-           bos_id: int, eos_id: int, pad_id: int, clip_len: int
+           bos_id: Optional[int], eos_id: int, pad_id: int, clip_len: int
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """BOS + pieces + EOS, padded: slot j holds ``val`` (piece j - 1) while
-    j - 1 < total, EOS at min(1 + total, clip_len - 1), PAD after it.
-    ``total`` broadcasts against ``j`` (the last axis)."""
-    jw = j - 1
-    eos_pos = torch.clamp(1 + total, max=clip_len - 1)
-    out = torch.where(
-        j == 0, bos_id,
-        torch.where(j == eos_pos, eos_id,
-                    torch.where((jw >= 0) & (jw < total) & (j < eos_pos),
-                                val, pad_id)))
+    """[BOS] + pieces + EOS, padded: with a BOS (lead 1) slot 0 holds it;
+    slot j holds ``val`` (piece j - lead) while j - lead < total, EOS at
+    min(lead + total, clip_len - 1), PAD after it. ``total`` broadcasts
+    against ``j`` (the last axis)."""
+    lead = _lead(bos_id)
+    jw = j - lead
+    eos_pos = torch.clamp(lead + total, max=clip_len - 1)
+    out = torch.where(j == eos_pos, eos_id,
+                      torch.where((jw >= 0) & (jw < total) & (j < eos_pos),
+                                  val, pad_id))
+    if lead:
+        out = torch.where(j == 0, bos_id, out)
     return out.to(torch.int32), (j <= eos_pos).to(torch.int32)
 
 
 def assemble_clip_ids(bert_ids: torch.Tensor, bridge_ids: torch.Tensor,
-                      bridge_lens: torch.Tensor, *, bos_id: int, eos_id: int,
+                      bridge_lens: torch.Tensor, *, bos_id: Optional[int],
+                      eos_id: int,
                       pad_id: int, clip_len: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., P) BERT ids (caption words, no [CLS]/[SEP]) -> (clip_ids,
@@ -93,7 +103,7 @@ def assemble_clip_ids(bert_ids: torch.Tensor, bridge_ids: torch.Tensor,
     offs = ends - lens
     total = ends[:, -1:]  # (R, 1)
     j = torch.arange(clip_len, device=flat.device)
-    jw = j - 1
+    jw = j - _lead(bos_id)
     # word covering piece jw: the number of words ending at or before it
     p_j = (ends[:, None, :] <= jw[None, :, None]).sum(-1)  # (R, clip_len)
     p_j = torch.clamp(p_j, max=P - 1)
@@ -107,8 +117,8 @@ def assemble_clip_ids(bert_ids: torch.Tensor, bridge_ids: torch.Tensor,
 
 def assemble_clip_ids_substitute(
     base_inner: torch.Tensor, cand_ids: torch.Tensor, pos: torch.Tensor,
-    bridge_ids: torch.Tensor, bridge_lens: torch.Tensor, *, bos_id: int,
-    eos_id: int, pad_id: int, clip_len: int,
+    bridge_ids: torch.Tensor, bridge_lens: torch.Tensor, *,
+    bos_id: Optional[int], eos_id: int, pad_id: int, clip_len: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k candidate rows of one Gibbs step: the base rows (B, P) with
     ``cand_ids`` (B, k) substituted at column ``pos`` (B,). The base piece
@@ -140,7 +150,7 @@ def assemble_clip_ids_substitute(
 
     cand_pieces = bridge_ids[cand]  # (B, k, M)
     cand_lens = bridge_lens[cand][:, :, None]  # (B, k, 1)
-    jw = (t - 1)[None, None, :]  # (1, 1, clip_len)
+    jw = (t - _lead(bos_id))[None, None, :]  # (1, 1, clip_len)
     o = off0[:, None, None]
     in_cand = (jw >= o) & (jw < o + cand_lens)
     idx_base = jw - torch.where(jw >= o + cand_lens, cand_lens, 0)
