@@ -187,6 +187,9 @@ from conzic_torch.kernels.attention_with_out import (
     attention_with_out,
     attention_with_out_plain,
 )
+from conzic_torch.kernels.dot_product_attention import (
+    fused_dot_product_attention,
+)
 from conzic_torch.kernels.layer_norm import (
     layer_norm,
     layer_norm_backward_plain,
@@ -203,11 +206,23 @@ from conzic_torch.kernels.quick_gelu import (
 )
 from conzic_torch.kernels.timing import time_ms
 from conzic_torch.models.checkpoint import load_tiny_checkpoint
-from conzic_torch.models.configs import BertConfig, CLIPConfig
+from conzic_torch.models.configs import (
+    BertConfig,
+    CLIPConfig,
+    SiglipConfig,
+)
 from conzic_torch.models.convert import hf_names
 from conzic_torch.models.layers import Linear
 from conzic_torch.ops import quant
-from conzic_torch.ops.attention import XLA_IMPLS, attention_keep_mask
+from conzic_torch.ops import attention as attention_ops
+from conzic_torch.ops.attention import (
+    XLA_IMPLS,
+    AttnMask,
+    additive_bias,
+    attention_keep_mask,
+    dot_product_attention,
+    fused_dot_product_attention_plain,
+)
 from conzic_torch.parallel import distributed as dist_lib
 from conzic_torch.parallel.mesh import make_mesh, make_mesh_2d
 from conzic_torch.parallel.vocab import VOCAB_PARAMS, VocabSplitBert
@@ -245,7 +260,10 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense tensor-core bf16
 # So an output may lie 2^-7 (max(|plain|, 1) + sum_j w_j |v_j|) from its
 # plain version (Case.spread_fn gives the sum), whatever the inputs; one
 # ulp of max(|plain|, 1) alone refuses about one call in a hundred on
-# fresh draws (sweep_masked_attention counts them). quick_gelu computes each
+# fresh draws (sweep_masked_attention counts them). dot_product_attention
+# rounds where masked attention does (fp32 logits and softmax on its own
+# tensor-core sums, bf16 weights, one rounding of the output) and is held
+# to the same bound. quick_gelu computes each
 # value with its plain version's fp32 operations (1.702f, expf, an IEEE
 # division) and rounds once where the plain version does: the two are held
 # equal bit for bit, in bf16 and in fp32 (EXACT)
@@ -272,14 +290,21 @@ KERNELS = {
     # the reference's activation is plain jnp, which XLA fuses
     "quick_gelu": dict(route="cuda", source="conzic_torch/csrc/quick_gelu.cu",
                        replaces=None),
+    # the reference's einsum attention is plain jnp, which XLA compiles
+    "dot_product_attention": dict(
+        route="cuda", source="conzic_torch/csrc/dot_product_attention.cu",
+        replaces=None),
 }
 WRAPPERS = {"layer_norm": layer_norm, "masked_attention": masked_attention,
             "attention_with_out": attention_with_out,
-            "attention_block": attention_block, "quick_gelu": quick_gelu}
-# the attn_impl whose main-path run gives a kernel's launch count
+            "attention_block": attention_block, "quick_gelu": quick_gelu,
+            "dot_product_attention": fused_dot_product_attention}
+# the attn_impl (or new path) whose main-path run gives a kernel's launch
+# count
 ROUTE_OF = {"layer_norm": "pallas", "masked_attention": "pallas",
             "attention_with_out": "pallas_out",
-            "attention_block": "pallas_block", "quick_gelu": "pallas"}
+            "attention_block": "pallas_block", "quick_gelu": "pallas",
+            "dot_product_attention": "xla"}
 DEVICE = "cuda"
 MAIN = dict(batch=32, top_k=200, sentence_len=10, clip_len=24,
             prompt="Image of a", row_chunk=800, kv_chunk=16)
@@ -491,6 +516,38 @@ def attn_case(label, N, Sq, Sk, H, D, causal, lens_mode, dtype, gen, P=0,
         n_ops=4 * kept * D, also=also, spread_fn=spread)
 
 
+def dpa_case(label, N, Sq, Sk, H, D, causal, lens_mode, gen,
+             short=8) -> Case:
+    """The library route's attention in one kernel, bf16 only (fp32 stays
+    on the library formula), held to masked attention's bf16 bound; the
+    library yardstick is the formula it replaces, ``additive_bias`` and
+    ``dot_product_attention`` (ops/attention.py)."""
+    dtype = torch.bfloat16
+
+    def draw(*shape):
+        return torch.randn(*shape, device=DEVICE, generator=gen).to(dtype)
+
+    q, k, v = draw(N, Sq, H, D), draw(N, Sk, H, D), draw(N, Sk, H, D)
+    lens = draw_lens(lens_mode, N, Sk - Sq + 1, Sk, gen, short)
+
+    def spread():  # fp32 weights, not rounded, times |v|
+        return fused_dot_product_attention_plain(
+            q.float(), k.float(), v.float().abs(), lens, causal)
+
+    def library():
+        bias = additive_bias(AttnMask(lens, causal), N, Sq, Sk, q.device)
+        return dot_product_attention(q, k, v, bias)
+
+    return Case(
+        "dot_product_attention", label, dtype,
+        lambda: fused_dot_product_attention(q, k, v, lens, causal),
+        lambda: fused_dot_product_attention_plain(q, k, v, lens, causal),
+        library,
+        n_bytes=2 * N * (Sq + Sk) * H * D * q.element_size()
+        + (4 * N if lens is not None else 0),
+        n_ops=4 * N * H * Sq * Sk * D, spread_fn=spread)
+
+
 def with_out_case(label, N, Sq, Sk, H, D, E, dtype, gen, causal=True,
                   lens_mode="reach", P=0, G=1, bias_dtype=None) -> Case:
     """Suffix-over-prefix attention (causal, with key lengths, on the main
@@ -584,11 +641,35 @@ def main_path_cases(shape, dtype, gen) -> List[Case]:
     ``attn_impl``. The last block case is the full-row text pass the engine
     makes without prefix K/V (``kv_chunk_size=0``). quick_gelu also at the
     text chunk's hidden tensor of the benchmark's cells (800 rows x 28
-    suffix positions; ViT-B/32's and ViT-L/14's text widths)."""
+    suffix positions; ViT-B/32's and ViT-L/14's text widths). In bf16
+    dot_product_attention at every call the ``"xla"`` route's run of this
+    captioner gives it (the text tower's over the prompt's keys
+    concatenated, BERT's, ViT-B/32's 50 keys), then at the benchmark's
+    cells on the library route: so400m's text chunk (800 whole 64-position
+    rows, 16 heads of 72) and its pooled final layer, l14's text chunk
+    (clip_len 32, the prompt's keys concatenated) and its pooled layer."""
     B, kc_rows, P, S = shape["B"], shape["rows"], shape["P"], shape["S_suf"]
     L = shape["bert_len"]
     F_text, F_vis = 4 * 512, 4 * 768
-    return [
+    dpa = [] if dtype != torch.bfloat16 else [
+        dpa_case("text suffix chunk, prompt keys concatenated", kc_rows, S,
+                 P + S, 8, 64, True, "reach", gen),
+        dpa_case("text pooled (Sq=1)", kc_rows, 1, P + S, 8, 64, False,
+                 "reach", gen),
+        dpa_case("text prompt prefix", B, P, P, 8, 64, True, None, gen),
+        dpa_case("bert full rows", B, L, L, 12, 64, False, "reach", gen),
+        dpa_case("bert pooled (Sq=1)", B, 1, L, 12, 64, False, "reach", gen),
+        dpa_case("vision", B, 50, 50, 12, 64, False, None, gen),
+        dpa_case("so400m cell's text chunk", 800, 64, 64, 16, 72, False,
+                 None, gen),
+        dpa_case("so400m pooled final layer (Sq=1)", 800, 1, 64, 16, 72,
+                 False, None, gen),
+        dpa_case("l14 cell's text chunk", 800, 32 - P, 32, 12, 64, True,
+                 "reach", gen),
+        dpa_case("l14 pooled final layer (Sq=1)", 800, 1, 32, 12, 64, False,
+                 "reach", gen),
+    ]
+    return dpa + [
         ln_case("text suffix chunk", kc_rows * S, 512, 1e-5, dtype, gen),
         ln_case("text pooled rows", kc_rows, 512, 1e-5, dtype, gen),
         ln_case("bert rows", B * L, 768, 1e-12, dtype, gen),
@@ -722,7 +803,9 @@ def edge_cases(dtype, gen) -> List[Case]:
     E = 512 and 768, biases in fp32 and in bf16, and attention_with_out in
     its prefix form (images changing inside a group, G = 1, Sq = 1, two
     passes over the heads at E = 768, two heads a 64-column chunk at D =
-    32)."""
+    32). dot_product_attention in bf16: key lengths 0 to Sk and 0 to 1,
+    128 keys at D = 128, seven row tiles, D = 8, 24, 40 and 72 (contracted
+    16 features a step, the rest zeros), one query row over 801 rows."""
     return [
         attn_case("prefix, N=801 G=3 (images change mid-block)", 801, 16, 24,
                   8, 64, True, "edge", dtype, gen, P=8, G=3),
@@ -809,7 +892,18 @@ def edge_cases(dtype, gen) -> List[Case]:
         qg_case("ragged (1001, 7, 3)", (1001, 7, 3), dtype, gen),
         qg_case("fewer than a vector (3,)", (3,), dtype, gen),
         qg_case("ragged (999, 13)", (999, 13), dtype, gen),
-    ]
+    ] + ([] if dtype != torch.bfloat16 else [
+        dpa_case("lens 0..Sk, causal", 7, 16, 24, 4, 64, True, "edge", gen),
+        dpa_case("lens 0..Sk, D=72", 7, 20, 24, 4, 72, False, "edge", gen),
+        dpa_case("lens 0..1", 5, 9, 33, 2, 40, False, "short", gen, short=1),
+        dpa_case("Sk=128 D=128 causal", 3, 128, 128, 2, 128, True, "edge",
+                 gen),
+        dpa_case("Sq=100 Sk=128 (seven row tiles)", 3, 100, 128, 2, 64, True,
+                 None, gen),
+        dpa_case("Sk=17 D=8", 5, 5, 17, 3, 8, True, "edge", gen),
+        dpa_case("S=50 D=24", 5, 50, 50, 3, 24, False, None, gen),
+        dpa_case("N=801 Sq=1 Sk=7", 801, 1, 7, 5, 16, False, "edge", gen),
+    ])
 
 
 def readings(case: Case):
@@ -920,6 +1014,52 @@ def check_quick_gelu_calls(gen) -> None:
         raise AssertionError("quick_gelu's counter or Function on the card")
 
 
+def check_dpa_calls(gen) -> None:
+    """What dot_product_attention refuses on the card (fp32, which stays on
+    the library formula; 129 keys; D = 70; Sq > Sk; a non-contiguous q),
+    its counter (one launch a call), and the dispatcher's choice
+    (``ops/attention.py`` ``xla_attention``): bf16 takes the kernel, fp32
+    and a call under grad take the library formula."""
+    def draw(N, S, H, D, dtype=torch.bfloat16):
+        return torch.randn(N, S, H, D, device=DEVICE, generator=gen).to(dtype)
+
+    q, k = draw(4, 16, 2, 72), draw(4, 24, 2, 72)
+    refused = []
+    for label, args in (
+            ("fp32", (q.float(), k.float(), k.float())),
+            ("129 keys", (q, draw(4, 129, 2, 72), draw(4, 129, 2, 72))),
+            ("D=70", (draw(4, 16, 2, 70), draw(4, 24, 2, 70),
+                      draw(4, 24, 2, 70))),
+            ("Sq > Sk", (draw(4, 25, 2, 72), k, k)),
+            ("non-contiguous q", (draw(4, 2, 16, 72).transpose(1, 2), k, k))):
+        try:
+            fused_dot_product_attention(*args)
+        except (TypeError, ValueError) as e:
+            refused.append(f"{label}: {e}")
+        else:
+            raise AssertionError(f"dot_product_attention took a call it must "
+                                 f"refuse ({label})")
+    reset_launches()
+    for _ in range(3):
+        fused_dot_product_attention(q, k, k)
+    ticks = fused_dot_product_attention.launches
+    mask = AttnMask(lens=None, causal=True)
+    reset_launches()
+    got = attention_ops.xla_attention(q, k, k, mask)
+    bf16_launches = fused_dot_product_attention.launches
+    attention_ops.xla_attention(q.float(), k.float(), k.float(), mask)
+    qg = q.float().requires_grad_()
+    attention_ops.xla_attention(qg.to(torch.bfloat16), k, k, mask)
+    routed = fused_dot_product_attention.launches - bf16_launches
+    same = torch.equal(got, fused_dot_product_attention(q, k, k, None, True))
+    say(f"dot_product_attention calls: refused {refused}; launches over 3 "
+        f"calls {ticks}; the dispatcher: bf16 {bf16_launches} launch (equal "
+        f"to the wrapper's output {same}), fp32 and under grad {routed}")
+    if ticks != 3 or bf16_launches != 1 or routed != 0 or not same:
+        raise AssertionError("dot_product_attention's counter or dispatcher "
+                             "on the card")
+
+
 # the kernels whose wrappers encode TMA maps on the host at every call
 HOST_TIMED = ("attention_with_out", "attention_block")
 HOST_CALLS = 200
@@ -993,6 +1133,7 @@ def phase_kernels(shape) -> dict:
         raise AssertionError("kernel disagrees with its plain version: "
                              + ", ".join(failures))
     check_quick_gelu_calls(gen)
+    check_dpa_calls(gen)
     sweep_masked_attention(shape, SWEEP_SEEDS)
     phase_topk_chunk(gen)
     return summary
@@ -1327,18 +1468,29 @@ def expected_launches(cap: Captioner, n_chunks: int, full_rows=False,
     prefix = 0 if full_rows else 1
     once = {"layer_norm": prefix * (2 * nt + 1) + (2 * nv + 2),
             "masked_attention": prefix * nt + nv, "attention_with_out": 0,
-            "attention_block": 0, "quick_gelu": prefix * nt + nv}
+            "attention_block": 0, "quick_gelu": prefix * nt + nv,
+            "dot_product_attention": 0}
     step = {"layer_norm": 2 * nb + 2 + sum((2 * d + 1) * c
                                            for d, c in passes),
             "masked_attention": nb + sum(d * c for d, c in passes),
             "attention_with_out": 0, "attention_block": 0,
-            "quick_gelu": sum(d * c for d, c in passes)}
+            "quick_gelu": sum(d * c for d, c in passes),
+            "dot_product_attention": 0}
 
     def move(counts, n, to):
         counts["masked_attention"] -= n
         counts[to] += n
 
-    if impl in XLA_IMPLS:  # the reference's einsum attention: no kernel
+    if impl in XLA_IMPLS:
+        # the reference's einsum attention, every pass of which (ViT-B/32's
+        # 50 keys, BERT's and the text tower's rows) takes the
+        # dot_product_attention kernel in bf16; twoblock's suffix passes
+        # over prefix K/V take its two-block form instead
+        if impl == "twoblock" and not full_rows:
+            step["masked_attention"] -= sum((d - 1) * c for d, c in passes)
+        if cap.cfg.dtype == "bfloat16":
+            move(once, once["masked_attention"], "dot_product_attention")
+            move(step, step["masked_attention"], "dot_product_attention")
         once["masked_attention"] = step["masked_attention"] = 0
         return once, step
 
@@ -1396,6 +1548,8 @@ def phase_main(iters: int, cap: Captioner, shape: dict, pixels,
     route = cap.cfg.attn_impl
     must = (["layer_norm", "quick_gelu"] if route in XLA_IMPLS else
             [n for n, r in ROUTE_OF.items() if r in ("pallas", route)])
+    if route in XLA_IMPLS and cap.cfg.dtype == "bfloat16":
+        must.append("dot_product_attention")
     if any(launches[n] <= 0 for n in must):
         raise AssertionError(f"a kernel of the {impl} path never launched: "
                              f"{launches}")
@@ -2066,6 +2220,14 @@ ROUTE_CASES = (
     ("twoblock, int8", dict(attn_impl="twoblock", quant="int8"),
      dict(order="sequential")),
 )
+# phase 3's SigLIP case: so400m's matcher at tiny widths, two layers of two
+# heads of 72 (the published head size) and 12 x 12 patches, over
+# dot_product_attention's 128 keys as so400m's 729; 2 images x 8
+# candidates, two row chunks a step
+TINY_SIGLIP = dataclasses.replace(
+    SiglipConfig.tiny(), vision=dataclasses.replace(
+        SiglipConfig.tiny().vision, image_size=168))
+TINY_SIGLIP_RUN = dict(images=2, top_k=8, max_len=4, iters=2, row_chunk=8)
 # the full-width reads of the new paths: (label, attn_impl, quant)
 NEW_MAIN_PATHS = (("int8", "pallas", "int8"),
                   ("int8_all", "pallas", "int8_all"),
@@ -2079,8 +2241,9 @@ TINY_PROCS = dict(images=4, max_len=5, top_k=16, iters=2)
 
 def phase_route_agreement() -> None:
     """Tiny fp32 captioners under the int8 tiers and the XLA routes: the
-    card's caption ids must be the CPU's. The XLA routes launch no
-    attention kernel, and int8 under pallas_out no attention_with_out."""
+    card's caption ids must be the CPU's. The XLA routes launch none of the
+    three attention kernels, and int8 under pallas_out no
+    attention_with_out; in fp32 no route launches dot_product_attention."""
     for label, cfg_kw, run_kw in ROUTE_CASES:
         cfg = ConzicConfig(dtype="float32", **cfg_kw)
         cpu, gpu, emb, emb_err = tiny_pair(cfg)
@@ -2096,12 +2259,96 @@ def phase_route_agreement() -> None:
             f"embed diff={emb_err:.3g} launches={launches}")
         if not same or cos_err > AGREE_COS_ATOL:
             raise AssertionError(f"GPU and CPU runs differ (route: {label})")
-        banned = (["masked_attention", "attention_with_out",
-                   "attention_block"] if cfg.attn_impl in XLA_IMPLS else
-                  ["attention_with_out"] if cfg.attn_impl == "pallas_out"
-                  else [])
+        # fp32: dot_product_attention never launches
+        banned = ["dot_product_attention"] + (
+            ["masked_attention", "attention_with_out", "attention_block"]
+            if cfg.attn_impl in XLA_IMPLS else
+            ["attention_with_out"] if cfg.attn_impl == "pallas_out" else [])
         if any(launches[n] for n in banned) or launches["layer_norm"] <= 0:
             raise AssertionError(f"route {label}: launches {launches}")
+
+
+def tiny_siglip(dtype: str, device) -> Captioner:
+    """The tiny SigLIP captioner (``TINY_SIGLIP``, BERT at
+    ``BertConfig.tiny``) in ``dtype`` on ``device``: seeded weights drawn
+    on the CPU, the same whatever the type and the device."""
+    cfg = ConzicConfig(dtype=dtype, attn_impl="xla", clip_len=64)
+    cfg.clip_row_chunk = TINY_SIGLIP_RUN["row_chunk"]
+    cap = Captioner.from_random(cfg, clip_config=TINY_SIGLIP, seed=7,
+                                device="cpu")
+    if torch.device(device).type == "cpu":
+        return cap
+    return Captioner(cap.bert_model, cap.clip_model, cap.wp, cap.bpe, cfg,
+                     device=device)
+
+
+def phase_siglip_agreement() -> None:
+    """A tiny SigLIP captioner (``tiny_siglip``), card against CPU in
+    fp32: identical caption ids, the library formula on both sides (no
+    dot_product_attention launch). Then in bf16 on the card: every
+    attention of a Gibbs step (BERT's layers, SigLIP's text layers in each
+    row chunk) launches dot_product_attention, the vision tower and its
+    pooling head none; SigLIP's text embeddings of seeded rows through the
+    kernel and through the library formula, each against the fp32 tower's;
+    the share of caption ids equal to a run with the library formula
+    everywhere (information)."""
+    t = TINY_SIGLIP_RUN
+    B, k = t["images"], t["top_k"]
+    args = run_args(max_len=t["max_len"], top_k=k, max_iter=t["iters"],
+                    order="shuffle")
+    cpu = tiny_siglip("float32", "cpu")
+    px = 2 * seeded_pixels(cpu, B, seed=5) - 1
+    emb = cpu.encode_images(px)
+    a = cpu.run(emb, rng=np.random.RandomState(7), **args)
+    gpu = tiny_siglip("float32", DEVICE)
+    reset_launches()
+    b = gpu.run(emb, rng=np.random.RandomState(7), **args)
+    fp32_launches = read_launches()["dot_product_attention"]
+    same, _, cos_err = compare_runs(a, b)
+    say(f"agreement [tiny SigLIP, fp32]: caption ids identical={same} max "
+        f"cosine diff={cos_err:.3g} (tol {AGREE_COS_ATOL:g}); "
+        f"dot_product_attention launches {fp32_launches}")
+    if not same or cos_err > AGREE_COS_ATOL or fp32_launches:
+        raise AssertionError("tiny SigLIP: card and CPU differ in fp32")
+
+    cap = tiny_siglip("bfloat16", DEVICE)
+    reset_launches()
+    emb = cap.encode_images(px)
+    image_launches = read_launches()["dot_product_attention"]
+    kernel_run = cap.run(emb, rng=np.random.RandomState(7), **args)
+    launches = read_launches()["dot_product_attention"]
+    steps = t["iters"] * t["max_len"]
+    chunks = n_row_chunks(B, k, cap.cfg.clip_row_chunk)
+    want = steps * (cap.bert_model.config.num_layers
+                    + chunks * cap.clip_model.config.text.num_layers)
+    gen = torch.Generator().manual_seed(3)
+    text = cap.clip_model.config.text
+    ids = torch.randint(0, text.vocab_size, (64, 64), generator=gen)
+    with torch.inference_mode():
+        ref = gpu.clip_model.encode_text(ids.to(DEVICE)).float()
+        got = cap.clip_model.encode_text(ids.to(DEVICE)).float()
+        takes = attention_ops.kernel_takes
+        attention_ops.kernel_takes = lambda q, k, v: False
+        try:
+            lib = cap.clip_model.encode_text(ids.to(DEVICE)).float()
+            library_run = cap.run(emb, rng=np.random.RandomState(7), **args)
+        finally:
+            attention_ops.kernel_takes = takes
+
+    def rel(x):
+        return float((torch.linalg.vector_norm(x - ref, dim=-1)
+                      / torch.linalg.vector_norm(ref, dim=-1)).max())
+
+    share = float((kernel_run.iter_ids == library_run.iter_ids).mean())
+    say(f"tiny SigLIP [bf16 on the card]: dot_product_attention launches "
+        f"{launches} over {steps} Gibbs steps ({want} by the structure), "
+        f"{image_launches} in the image tower; text embeddings against the "
+        f"fp32 tower's, largest relative error: kernel {rel(got):.4g}, "
+        f"library formula {rel(lib):.4g}; {share:.4f} of the caption ids "
+        f"equal a run on the library formula")
+    if launches != want or image_launches or not rel(got) <= 2 * rel(lib):
+        raise AssertionError("tiny SigLIP in bf16: dot_product_attention's "
+                             "launches or its embeddings")
 
 
 def thread_launch_race(reps: int = 4000) -> None:
@@ -2989,6 +3236,9 @@ def phase_train_full() -> dict:
     # the vision tower once and the text tower twice
     nv, nt = clip_cfg.vision.num_layers, clip_cfg.text.num_layers
     want["quick_gelu"] = steps["clip"] * (nv + nt) + nv + 2 * nt
+    # training keeps the library formula under grad; validation (bf16,
+    # inference mode) takes dot_product_attention in every attention
+    want["dot_product_attention"] = nv + 2 * nt + bert_cfg.num_layers
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     tiny_shapes = trained_tiny_ln_shapes()
     check_train_ln(shapes["clip"] + shapes["bert"] + tiny_shapes["clip"]
@@ -3343,6 +3593,7 @@ def main(argv=None) -> int:
     say(f"phase pruned agreement ok ({time.perf_counter() - t:.1f} s)")
     t = time.perf_counter()
     phase_route_agreement()
+    phase_siglip_agreement()
     phase_mesh_agreement()
     phase_two_process_tiny()
     say(f"phase route and scale-out agreement ok "
@@ -3457,7 +3708,7 @@ def main(argv=None) -> int:
         s = summary[name]
         kernels.append(dict(
             name=name, **meta,
-            launches=main[ROUTE_OF[name]]["launches"][name],
+            launches={**main, **new_paths}[ROUTE_OF[name]]["launches"][name],
             launches_by_attn_impl={impl: run["launches"][name]
                                    for impl, run in main.items()},
             launches_cli_run=cli["launches"][name],

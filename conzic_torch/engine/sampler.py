@@ -100,7 +100,11 @@ from conzic_torch.text.lexicons import (
     template_matrix,
 )
 from conzic_torch.text.roberta_bpe import RobertaBPETokenizer
-from conzic_torch.text.unigram import SiglipTokenizer
+from conzic_torch.text.unigram import (
+    TEST_UNK_ID,
+    SiglipTokenizer,
+    make_test_pieces,
+)
 from conzic_torch.text.vocab import (
     build_token_masks,
     load_stop_words_file,
@@ -339,14 +343,17 @@ class Captioner:
     @classmethod
     def from_random(cls, config: Optional[ConzicConfig] = None,
                     bert_config: Optional[BertConfig] = None,
-                    clip_config: Optional[CLIPConfig] = None, seed: int = 0,
+                    clip_config: Union[CLIPConfig, SiglipConfig, None] = None,
+                    seed: int = 0,
                     wp_vocab: Optional[dict] = None,
                     clip_text_vocab_size: Optional[int] = None,
                     device: Union[str, torch.device] = "cuda",
                     mesh=None) -> "Captioner":
         """Seeded random towers over synthetic vocabularies: tiny by
         default, full width when given ``BertConfig()`` / ``CLIPConfig()``
-        and the full-size vocabulary."""
+        and the full-size vocabulary. A :class:`SiglipConfig` gives a SigLIP
+        matcher whose Unigram pieces are the proposer's words
+        (``text/unigram.py`` ``make_test_pieces``)."""
         config = config or ConzicConfig()
         if mesh is not None:
             device = data_devices(mesh)[0]
@@ -355,13 +362,18 @@ class Captioner:
         bert_config = dataclasses.replace(
             bert_config or BertConfig.tiny(), vocab_size=wp.vocab_size)
         clip_config = clip_config or CLIPConfig.tiny()
+        if isinstance(clip_config, SiglipConfig):
+            bpe = SiglipTokenizer(
+                make_test_pieces([t for t in wp.vocab
+                                  if not t.startswith("[")]), TEST_UNK_ID,
+                model_max_length=clip_config.text.max_position_embeddings)
         text_vocab = max(bpe.vocab_size, clip_text_vocab_size or 0,
                          clip_config.text.vocab_size)
-        # the text tower pools at the first EOS: its id is the BPE's EOS
-        clip_config = dataclasses.replace(
-            clip_config, text=dataclasses.replace(
-                clip_config.text, vocab_size=text_vocab,
-                eos_token_id=bpe.eos_token_id))
+        text = dataclasses.replace(clip_config.text, vocab_size=text_vocab)
+        if not isinstance(clip_config, SiglipConfig):
+            # the text tower pools at the first EOS: its id is the BPE's EOS
+            text = dataclasses.replace(text, eos_token_id=bpe.eos_token_id)
+        clip_config = dataclasses.replace(clip_config, text=text)
         with torch.device(device):
             bert, clip = build_towers(bert_config, clip_config, config)
         random_init_([bert, clip], seed, device)

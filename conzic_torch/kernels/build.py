@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "conzic_torch"
 SOURCES: Tuple[str, ...] = ("layer_norm", "masked_attention",
                             "attention_with_out", "attention_block",
-                            "quick_gelu")
+                            "quick_gelu", "dot_product_attention")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

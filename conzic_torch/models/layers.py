@@ -8,7 +8,9 @@ goes through the LayerNorm kernel, every quick gelu through the quick_gelu
 kernel and every attention through one of the
 three attention kernels, chosen by ``attn_impl``, or through the
 reference's own XLA formulations (``"xla"``, ``"xla_bhsd"``,
-``"twoblock"``: plain PyTorch products, the library route). Under
+``"twoblock"``: plain PyTorch products, the library route; the einsum form
+goes through ``ops/attention.py`` ``xla_attention``, which runs it as one
+kernel where a row's keys fit on chip). Under
 ``quant="int8"`` the projections and MLPs of a block multiply in int8
 (``ops/quant.py``).
 """
@@ -33,8 +35,8 @@ from conzic_torch.ops.attention import (
     XLA_IMPLS,
     AttnMask,
     additive_bias,
-    dot_product_attention,
     two_block_prefix_attention,
+    xla_attention,
 )
 from conzic_torch.ops.quant import (
     QuantizedWeight,
@@ -195,8 +197,8 @@ class MultiHeadAttention(nn.Module):
                 q, k, v, *prefix_kv,
                 additive_bias(mask, N, Sq, Sk, q.device))
         elif xla:
-            out = dot_product_attention(
-                q, k, v, additive_bias(mask, N, Sq, k.shape[1], q.device),
+            out = xla_attention(
+                q, k, v, mask,
                 impl="xla_bhsd" if impl == "xla_bhsd" else "xla")
         else:
             out = masked_attention(q, k.contiguous(), v.contiguous(),

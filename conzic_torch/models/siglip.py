@@ -32,7 +32,7 @@ from conzic_torch.models.layers import (
     TransformerStack,
     cast_param,
 )
-from conzic_torch.ops.attention import AttnMask, dot_product_attention
+from conzic_torch.ops.attention import AttnMask, xla_attention
 from conzic_torch.runtime import profiling
 from conzic_torch.runtime.profiling import span
 
@@ -104,7 +104,7 @@ class SiglipPoolingHead(nn.Module):
         probe = cast_param(self.probe, dt).expand(B, 1, E)
         q = F.linear(probe, w[:E], b[:E]).view(B, 1, H, E // H)
         kv = F.linear(x.to(dt), w[E:], b[E:]).view(B, T, 2, H, E // H)
-        h = dot_product_attention(q, kv[:, :, 0], kv[:, :, 1])
+        h = xla_attention(q, kv[:, :, 0], kv[:, :, 1], AttnMask())
         h = self.out_proj(h.reshape(B, 1, E))
         h = h + self.mlp(self.layernorm(h))
         return h[:, 0]

@@ -12,9 +12,11 @@ the reference's own formulations, which XLA compiles outside any Pallas
 call: :func:`dot_product_attention` (einsums, fp32 logits, an additive
 bias, softmax, the weights cast to the compute type before the value
 product) and :func:`two_block_prefix_attention`. They run here as plain
-PyTorch products, the library route on the card: no hand-written kernel
-stands behind them, and they are not the kernels' plain versions (those
-replace masked logits; these add the bias, as the reference does).
+PyTorch products, the library route on the card, and they are not the
+attention kernels' plain versions (those replace masked logits; these add
+the bias, as the reference does). :func:`xla_attention` is the einsum
+form's one entry: where a row's keys fit on chip it computes the same
+formula in one hand-written kernel (``kernels/dot_product_attention.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,13 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from conzic_torch.kernels.dot_product_attention import (
+    MAX_HEAD_DIM,
+    MAX_KEYS,
+    fused_dot_product_attention,
+)
+from conzic_torch.runtime import profiling
 
 NEG_INF = -1e9  # masked logits: replaced by it (kernels), or offset (XLA)
 # the routes that run the reference's XLA formulations
@@ -116,6 +125,53 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits + bias
     weights = _softmax(logits).to(dtype)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v).to(dtype)
+
+
+def fused_dot_product_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                                      v: torch.Tensor,
+                                      lens: Optional[torch.Tensor] = None,
+                                      causal: bool = False) -> torch.Tensor:
+    """The plain version of ``kernels/dot_product_attention.py``'s kernel,
+    which computes the formula itself: :func:`dot_product_attention` under
+    the :func:`additive_bias` of (``lens``, ``causal``)."""
+    N, Sq, Sk = q.shape[0], q.shape[1], k.shape[1]
+    bias = additive_bias(AttnMask(lens, causal), N, Sq, Sk, q.device)
+    return dot_product_attention(q, k, v, bias)
+
+
+def fits_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """The kernel's conditions but the device: bf16 tensors, 1 <= Sq <= Sk
+    <= 128 keys, D <= 128 a multiple of 8, and no input that requires grad
+    under grad mode (the kernel has no backward)."""
+    Sq, D, Sk = q.shape[1], q.shape[-1], k.shape[1]
+    return (all(t.dtype == torch.bfloat16 for t in (q, k, v))
+            and 1 <= Sq <= Sk <= MAX_KEYS
+            and D <= MAX_HEAD_DIM and D % 8 == 0
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in (q, k, v))))
+
+
+def kernel_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether :func:`xla_attention` runs the hand-written kernel: a call on
+    a CUDA device that :func:`fits_kernel`."""
+    return q.device.type == "cuda" and fits_kernel(q, k, v)
+
+
+def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: AttnMask, impl: str = "xla") -> torch.Tensor:
+    """The einsum attention of the ``"xla"`` routes, q, k, v (N, S, H, D)
+    under ``mask``: one kernel launch where :func:`kernel_takes` the call,
+    else :func:`additive_bias` and :func:`dot_product_attention` in
+    ``impl``'s layout. Counts each call under
+    ``profiling.ATTENTION_KERNEL_CALLS`` or ``ATTENTION_LIBRARY_CALLS``."""
+    if kernel_takes(q, k, v):
+        profiling.count(profiling.ATTENTION_KERNEL_CALLS)
+        return fused_dot_product_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), mask.lens,
+            mask.causal)
+    profiling.count(profiling.ATTENTION_LIBRARY_CALLS)
+    bias = additive_bias(mask, q.shape[0], q.shape[1], k.shape[1], q.device)
+    return dot_product_attention(q, k, v, bias, impl=impl)
 
 
 def two_block_prefix_attention(q: torch.Tensor, k: torch.Tensor,

@@ -29,7 +29,10 @@ worker thread; inside the image tower, SigLIP's runs as
 parameters cast to the compute type on a call (``models/layers.py``
 ``cast_param``); ``towers.match_text_positions``, the positions a
 bidirectional matcher's text tower encodes, rows times their width a
-chunk (``models/siglip.py`` ``encode_full_rows``).
+chunk (``models/siglip.py`` ``encode_full_rows``);
+``towers.attention_kernel_calls`` and ``towers.attention_library_calls``,
+the einsum attentions of the ``"xla"`` routes that ran the hand-written
+kernel or the library formula (``ops/attention.py`` ``xla_attention``).
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ import torch
 PREFIX = "conzic."
 WEIGHT_CASTS = "towers.weight_casts"
 MATCH_TEXT_POSITIONS = "towers.match_text_positions"
+ATTENTION_KERNEL_CALLS = "towers.attention_kernel_calls"
+ATTENTION_LIBRARY_CALLS = "towers.attention_library_calls"
 
 _lock = threading.Lock()
 _live = 0  # request spans and traces open while a profiler records

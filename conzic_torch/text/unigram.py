@@ -139,3 +139,21 @@ class SiglipTokenizer:
             ids[i, :len(r)] = r
             mask[i, :len(r)] = 1
         return ids, mask
+
+
+TEST_UNK_ID = 2  # "<unk>" of make_test_pieces
+
+
+def make_test_pieces(words: Sequence[str]) -> List[Tuple[str, float]]:
+    """Pieces for dry runs without a checkpoint, as a ``tokenizer.json``
+    lists them: "<pad>", "</s>", "<unk>" (:data:`TEST_UNK_ID`); "▁" + each
+    canonical body of ``words`` (a ``##`` continuation's without its mark),
+    once, scored in [-9, -8) so that each is one piece; then "▁", the
+    letters and the digits at -10, so that every other word is cut."""
+    pieces = [("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0)]
+    bodies = list(dict.fromkeys(
+        b for w in words for b in canonicalize(w.removeprefix("##")).split()))
+    pieces += [(WORD_START + b, -8.0 - i / max(len(bodies), 1))
+               for i, b in enumerate(bodies)]
+    chars = WORD_START + string.ascii_lowercase + string.digits
+    return pieces + [(c, -10.0) for c in chars]

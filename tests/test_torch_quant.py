@@ -236,7 +236,7 @@ class _Record:
 
         monkeypatch.setattr(layers.Linear, "forward", forward)
         for name in ("attention_block", "attention_with_out",
-                     "masked_attention", "dot_product_attention",
+                     "masked_attention", "xla_attention",
                      "two_block_prefix_attention"):
             fn = getattr(layers, name)
 
@@ -290,13 +290,13 @@ def test_which_products_each_route_quantizes(attn_impl, monkeypatch):
     # the prefix pass (n) and the suffix pass (n), each one attention a
     # layer, through the kernel or the einsum form
     assert suffix.get("masked_attention" if kernel_route
-                      else "dot_product_attention", 0) == 2 * n
+                      else "xla_attention", 0) == 2 * n
     if attn_impl == "pallas_block":
         # all full-row blocks but the pooled last take the block kernel
         assert full == {"attention_block": n - 1, "masked_attention": 1}
     else:
         assert full == {("masked_attention" if kernel_route
-                         else "dot_product_attention"): n}
+                         else "xla_attention"): n}
 
 
 def test_pallas_block_int8_runs_the_block_kernel_unquantized(monkeypatch):
