@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive ``conzic_torch`` on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--iters 15] [--profile [ROUTE ...]]
+    python3 chip_smoke.py [--iters 15]
     python3 chip_smoke.py --trees DIR [DIR ...] [--reps 3] [--kernels]
     python3 chip_smoke.py --scale      (two or more cards)
 
@@ -1665,8 +1665,7 @@ def pruned_passes(cap: Captioner, B: int, tier: dict):
     return passes, [(nt, n_row_chunks(B, k, rc))]
 
 
-def phase_pruned(iters: int, cap: Captioner, shape: dict,
-                 profile: bool = False) -> dict:
+def phase_pruned(iters: int, cap: Captioner, shape: dict) -> dict:
     """The pruned tiers at full width, with the main path's other settings:
     the flagship at B=512 and the hybrid at B=32 over seeded images. Each
     builds its tables first, timed (the per-word embeddings of the whole
@@ -1675,8 +1674,7 @@ def phase_pruned(iters: int, cap: Captioner, shape: dict,
     iterations: caps/s, s per Gibbs step, peak memory, and launch counts
     that must equal the engine's structure (the stage-1 tower over the
     pre-cut's rows at its depth, the survivors' full encode; the hybrid's
-    last iteration the main path's). ``profile``: one flagship iteration
-    under the profiler after the reads."""
+    last iteration the main path's)."""
     L, k = MAIN["sentence_len"], MAIN["top_k"]
     saved = {knob: getattr(cap.cfg, knob)
              for knob in {**FLAGSHIP["cfg"], **HYBRID["cfg"]}}
@@ -1748,8 +1746,6 @@ def phase_pruned(iters: int, cap: Captioner, shape: dict,
             say(f"first caption [pruned {name}]: {res.gen_texts_list[-2][0]!r}")
             out[name] = dict(launches=launches, caps_s=B / res.elapsed_s,
                              s_per_step=res.elapsed_s / steps)
-            if profile and name == "flagship":
-                phase_profile(cap, embeds, "flagship")
     finally:
         cap.cfg.__dict__.update(saved)
     return out
@@ -3365,66 +3361,6 @@ def phase_bench_tools() -> None:
     shutil.rmtree(os.path.dirname(out_path))
 
 
-PROFILE_GROUPS = (
-    ("layer_norm kernel", ("layer_norm_kernel",)),
-    ("masked_attention kernel", ("masked_attention_",)),
-    ("attention_with_out kernel", ("attention_with_out_",)),
-    ("attention_block kernels", ("attention_block_",)),
-    ("matrix products", ("nvjet", "gemm", "sm90_", "cutlass", "xmma",
-                         "Gemm", "imma")),
-    ("concatenation", ("CatArray",)),
-    ("sort (top-k)", ("sort", "Sort", "radix")),
-    ("gather / index", ("gather", "index", "Index", "scatter")),
-    ("reductions / softmax", ("reduce", "softmax", "Softmax")),
-)
-
-
-def phase_profile(cap: Captioner, embeds, label: str = "") -> None:
-    """One iteration of the main path (or of ``cap.cfg``'s pruned tier)
-    under torch.profiler: device time by kind of kernel, per Gibbs step,
-    and the share of the window in which the device ran no kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    L = MAIN["sentence_len"]
-    args = run_args(max_len=L, top_k=MAIN["top_k"], order="sequential")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        res = cap.run(embeds, max_iter=1, rng=np.random.RandomState(42),
-                      **args)
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and e.time_range.end > e.time_range.start)
-    if not spans:
-        say("profile: the profiler recorded no device time")
-        return
-    busy, reach = 0.0, spans[0][0]
-    for start, end, _ in spans:
-        busy += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
-    window = reach - spans[0][0]
-    by_group, by_name = {}, {}
-    for start, end, name in spans:
-        by_name[name] = by_name.get(name, 0.0) + (end - start)
-        group = next((g for g, keys in PROFILE_GROUPS
-                      if any(k in name for k in keys)), "other elementwise")
-        by_group[group] = by_group.get(group, 0.0) + (end - start)
-    total = sum(by_group.values())
-    label = f"{label}, " if label else ""
-    say(f"profile [{label}{cap.cfg.attn_impl}]: one iteration ({L} Gibbs "
-        f"steps, B={embeds.shape[0]}) took "
-        f"{res.elapsed_s:.3f} s under the profiler; device busy {busy / 1e3:.3f} ms of a "
-        f"{window / 1e3:.3f} ms window, idle share {1 - busy / window:.4f}; "
-        f"{len(spans)} kernels")
-    for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        say(f"profile: {label}{group}: {us / 1e3 / L:.3f} ms per Gibbs step "
-            f"({us / total:.4f} of device time)")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        say(f"profile kernel: {label}{us / 1e3 / L:.3f} ms/step "
-            f"{name[:110]}")
-
-
 # run with a checkout as the working directory: that checkout's own
 # chip_smoke and package are the ones imported
 TREE_RUN = """
@@ -3517,13 +3453,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=15,
                     help="Gibbs iterations of the main-path run")
-    ap.add_argument("--profile", nargs="*", default=None,
-                    choices=KERNEL_IMPLS + tuple(
-                        label for label, _, _ in NEW_MAIN_PATHS),
-                    metavar="ROUTE",
-                    help="also profile one iteration of the main path under "
-                         "each attn_impl or new path named (pallas when "
-                         "none is)")
     ap.add_argument("--trees", nargs="+", metavar="DIR",
                     help="only run the main path in each of these "
                          "checkouts, in this order, and print its caps/s")
@@ -3617,8 +3546,6 @@ def main(argv=None) -> int:
                       ).mean())
         say(f"phase main path [{impl}] ok ({time.perf_counter() - t:.1f} s); "
             f"{same:.4f} of its best caption ids equal the pallas run's")
-        if args.profile is not None and impl in (args.profile or ["pallas"]):
-            phase_profile(cap, main[impl]["embeds"])
         if impl == "pallas":
             t = time.perf_counter()
             controlled = phase_controlled(args.iters, cap, shape, pixels,
@@ -3629,8 +3556,7 @@ def main(argv=None) -> int:
             phase_exact(cap, shape, pixels, main[impl], controlled)
             say(f"phase exact modes ok ({time.perf_counter() - t:.1f} s)")
             t = time.perf_counter()
-            pruned = phase_pruned(args.iters, cap, shape,
-                                  profile=args.profile is not None)
+            pruned = phase_pruned(args.iters, cap, shape)
             say(f"phase pruned tiers ok ({time.perf_counter() - t:.1f} s)")
             torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -3645,8 +3571,6 @@ def main(argv=None) -> int:
         cap = full_captioner("bfloat16", impl, tier)
         new_paths[label] = phase_main(args.iters, cap, shape, pixels,
                                       label=label)
-        if args.profile and label in args.profile:
-            phase_profile(cap, new_paths[label]["embeds"], label)
         same = float((new_paths[label]["result"].best_ids[:, seed:seed + L]
                       == main["pallas"]["result"].best_ids[:, seed:seed + L]
                       ).mean())

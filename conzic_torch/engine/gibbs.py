@@ -99,7 +99,8 @@ class EngineSpec:
     topk_chunk: int = 2048  # exact_topk_2stage's block width
     mask_impl: str = "gather"  # gather | compare (banned-id lists)
     # the matcher's text tower attends every position (SigLIP): candidate
-    # rows run whole, with no prefix K/V, no window and no padding
+    # rows run whole, with no prompt K/V, padding or window, whatever
+    # prefix_chunks, clip_pad_to and clip_window say
     bidirectional: bool = False
 
 
@@ -563,7 +564,7 @@ def run_generation(spec: EngineSpec, bert: BertForMaskedLM, clip: CLIPModel,
     chunks = spec.prefix_chunks
     if (chunks is not None and len(chunks) == 1
             and 2 <= chunks[0][0] < spec.clip_len - 1
-            and not spec.exact_bridge):
+            and not spec.exact_bridge and not spec.bidirectional):
         P0 = chunks[0][0]
         with span("engine.prefix_kv"):
             pref_row, _ = assemble_clip_ids(

@@ -42,7 +42,6 @@ import json
 import logging
 import os
 import sys
-import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Union
@@ -65,21 +64,14 @@ from conzic_torch.models.checkpoint import (
     is_tiny_checkpoint,
     load_tiny_checkpoint,
 )
-from conzic_torch.models.clip import CLIPModel, TruncatedTextTower
-from conzic_torch.models.configs import (
-    BertConfig,
-    CLIPConfig,
-    SiglipConfig,
-    load_hf_config,
-)
+from conzic_torch.models.clip import TruncatedTextTower
+from conzic_torch.models.configs import BertConfig, CLIPConfig
 from conzic_torch.models.convert import (
     from_hf_state_dict,
     from_jax_params,
-    load_bert,
-    load_clip,
+    load_checkpoint,
 )
-from conzic_torch.models.siglip import SiglipModel
-from conzic_torch.ops.attention import XLA_IMPLS
+from conzic_torch.models.families import family_of
 from conzic_torch.parallel import distributed
 from conzic_torch.parallel.mesh import (
     data_devices,
@@ -99,16 +91,9 @@ from conzic_torch.text.lexicons import (
     build_sentiment_table,
     template_matrix,
 )
-from conzic_torch.text.roberta_bpe import RobertaBPETokenizer
-from conzic_torch.text.unigram import (
-    TEST_UNK_ID,
-    SiglipTokenizer,
-    make_test_pieces,
-)
 from conzic_torch.text.vocab import (
     build_token_masks,
     load_stop_words_file,
-    make_test_bpe_files,
     make_test_wordpiece_vocab,
 )
 from conzic_torch.text.wordpiece import WordPieceTokenizer
@@ -170,29 +155,15 @@ def tower_quants(quant: str) -> tuple:
     return bert_q, clip_q
 
 
-def build_towers(bert_config: BertConfig,
-                 clip_config: Union[CLIPConfig, SiglipConfig],
-                 config: ConzicConfig):
+def build_towers(bert_config, clip_config, config: ConzicConfig):
     """Both towers, empty, in the config's compute type, attention route
-    and quant tier; the matcher a ``CLIPModel``, or a ``SiglipModel`` for
-    a :class:`SiglipConfig`, which runs on the library route unquantized
-    and refuses the rest."""
+    and quant tier: the proposer and the matcher of the configs' families
+    (``models/families.py``), each refusing a route or tier its class
+    does not take."""
     dtype = _DTYPES[config.dtype]
-    bert_q, clip_q = tower_quants(config.quant)
-    bert = BertForMaskedLM(bert_config, dtype=dtype,
-                           attn_impl=config.attn_impl, quant=bert_q)
-    if not isinstance(clip_config, SiglipConfig):
-        return bert, CLIPModel(clip_config, dtype=dtype,
-                               attn_impl=config.attn_impl, quant=clip_q)
-    if config.quant != "none":
-        raise ValueError(f"quant={config.quant!r} with a SigLIP matcher: "
-                         "the int8 tiers take a CLIP matcher only")
-    if config.attn_impl not in XLA_IMPLS:
-        raise ValueError(f"attn_impl={config.attn_impl!r} with a SigLIP "
-                         "matcher: the attention kernels take a CLIP "
-                         f"matcher only; use one of {XLA_IMPLS}")
-    return bert, SiglipModel(clip_config, dtype=dtype,
-                             attn_impl=config.attn_impl)
+    return tuple(family_of(c).build(c, dtype, config.attn_impl, q)
+                 for c, q in zip((bert_config, clip_config),
+                                 tower_quants(config.quant)))
 
 
 def random_init_(modules: List[nn.Module], seed: int,
@@ -228,14 +199,13 @@ class GenerationResult:
 
 
 class Captioner:
-    def __init__(self, bert_model: BertForMaskedLM,
-                 clip_model: Union[CLIPModel, SiglipModel],
-                 wp: WordPieceTokenizer,
-                 bpe: Union[CLIPBPETokenizer, SiglipTokenizer],
+    def __init__(self, bert_model: BertForMaskedLM, clip_model: nn.Module,
+                 wp: WordPieceTokenizer, bpe,
                  config: Optional[ConzicConfig] = None,
                  device: Union[str, torch.device] = "cuda", mesh=None):
-        """``clip_model`` and ``bpe``: the matcher and its tokenizer,
-        CLIP's or SigLIP's. ``mesh``: a data mesh
+        """``bert_model`` and ``wp``, ``clip_model`` and ``bpe``: the
+        proposer, the matcher and their tokenizers, of any family
+        (``models/families.py``). ``mesh``: a data mesh
         (``parallel.mesh.make_mesh``, a list of devices) or a (data, model)
         mesh (``make_mesh_2d``, a list of rows); the captioner's own device
         is then the mesh's first."""
@@ -331,49 +301,36 @@ class Captioner:
         return replicas
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _tokenizers(wp_vocab: Optional[dict]):
-        vocab = wp_vocab or make_test_wordpiece_vocab()
-        wp = WordPieceTokenizer(
-            {t: i for i, t in enumerate(sorted(vocab, key=vocab.get))})
-        with tempfile.TemporaryDirectory(prefix="conzic_bpe_") as d:
-            bpe = CLIPBPETokenizer.from_files(*make_test_bpe_files(d))
-        return wp, bpe
-
     @classmethod
     def from_random(cls, config: Optional[ConzicConfig] = None,
                     bert_config: Optional[BertConfig] = None,
-                    clip_config: Union[CLIPConfig, SiglipConfig, None] = None,
-                    seed: int = 0,
+                    clip_config=None, seed: int = 0,
                     wp_vocab: Optional[dict] = None,
                     clip_text_vocab_size: Optional[int] = None,
                     device: Union[str, torch.device] = "cuda",
                     mesh=None) -> "Captioner":
         """Seeded random towers over synthetic vocabularies: tiny by
         default, full width when given ``BertConfig()`` / ``CLIPConfig()``
-        and the full-size vocabulary. A :class:`SiglipConfig` gives a SigLIP
-        matcher whose Unigram pieces are the proposer's words
-        (``text/unigram.py`` ``make_test_pieces``)."""
+        and the full-size vocabulary. The matcher's tokenizer is its
+        family's synthetic one (``models/families.py``): SigLIP's Unigram
+        pieces are the proposer's words."""
         config = config or ConzicConfig()
         if mesh is not None:
             device = data_devices(mesh)[0]
         device = resolve_device(device)
-        wp, bpe = cls._tokenizers(wp_vocab)
+        vocab = wp_vocab or make_test_wordpiece_vocab()
+        wp = WordPieceTokenizer(
+            {t: i for i, t in enumerate(sorted(vocab, key=vocab.get))})
         bert_config = dataclasses.replace(
             bert_config or BertConfig.tiny(), vocab_size=wp.vocab_size)
         clip_config = clip_config or CLIPConfig.tiny()
-        if isinstance(clip_config, SiglipConfig):
-            bpe = SiglipTokenizer(
-                make_test_pieces([t for t in wp.vocab
-                                  if not t.startswith("[")]), TEST_UNK_ID,
-                model_max_length=clip_config.text.max_position_embeddings)
+        match = family_of(clip_config)
+        bpe = match.test_tokenizer(wp, clip_config)
         text_vocab = max(bpe.vocab_size, clip_text_vocab_size or 0,
                          clip_config.text.vocab_size)
         text = dataclasses.replace(clip_config.text, vocab_size=text_vocab)
-        if not isinstance(clip_config, SiglipConfig):
-            # the text tower pools at the first EOS: its id is the BPE's EOS
-            text = dataclasses.replace(text, eos_token_id=bpe.eos_token_id)
-        clip_config = dataclasses.replace(clip_config, text=text)
+        clip_config = dataclasses.replace(clip_config,
+                                          text=match.fit_text(text, bpe))
         with torch.device(device):
             bert, clip = build_towers(bert_config, clip_config, config)
         random_init_([bert, clip], seed, device)
@@ -401,12 +358,11 @@ class Captioner:
                         device: Union[str, torch.device] = "cuda", mesh=None
                         ) -> "Captioner":
         """Towers and tokenizers from the local checkpoint directories
-        ``config.lm_model`` (HF BERT or RoBERTa masked LM) and
-        ``config.match_model`` (HF CLIP). A directory of the JAX package's
+        ``config.lm_model`` (an HF masked LM) and ``config.match_model``
+        (an HF dual encoder), each of the family its ``model_type`` names
+        (``models/families.py``). A directory of the JAX package's
         trained checkpoints (``conzic_tiny.json``) carries both towers and
-        goes to :meth:`from_tiny_dir`. A ``match_model`` directory of
-        ``model_type`` "siglip" gives a SigLIP matcher and its Unigram
-        tokenizer (``tokenizer.json``)."""
+        goes to :meth:`from_tiny_dir`."""
         if is_tiny_checkpoint(config.lm_model):
             # a trained directory holds both towers: a different
             # match_model would be silently replaced by its CLIP
@@ -421,19 +377,14 @@ class Captioner:
             return cls.from_tiny_dir(config, config.lm_model, device, mesh)
         if mesh is None:
             resolve_device(device)
-        bert_config, bert_sd = load_bert(config.lm_model)
-        clip_config, clip_sd = load_clip(config.match_model)
+        bert_config, bert_sd = load_checkpoint(config.lm_model, "lm")
+        clip_config, clip_sd = load_checkpoint(config.match_model, "match")
         bert, clip = build_towers(bert_config, clip_config, config)
         bert = from_hf_state_dict(bert, bert_sd)
         clip = from_hf_state_dict(clip, clip_sd)
-        if load_hf_config(config.lm_model).get("model_type") == "roberta":
-            wp = RobertaBPETokenizer.from_pretrained(config.lm_model)
-        else:
-            wp = WordPieceTokenizer.from_pretrained(config.lm_model)
-        if isinstance(clip_config, SiglipConfig):
-            bpe = SiglipTokenizer.from_pretrained(config.match_model)
-        else:
-            bpe = CLIPBPETokenizer.from_pretrained(config.match_model)
+        wp = family_of(bert_config).tokenizer.from_pretrained(config.lm_model)
+        bpe = family_of(clip_config).tokenizer.from_pretrained(
+            config.match_model)
         return cls(bert, clip, wp, bpe, config, device, mesh)
 
     @classmethod
@@ -780,9 +731,8 @@ class Captioner:
         row_chunk = self.cfg.clip_row_chunk
         budget = self.cfg.clip_token_budget
         bidirectional = self.clip_model.bidirectional
-        if bidirectional:
-            self._check_bidirectional()
-        elif row_chunk and budget and self.cfg.clip_len > 48:
+        if (row_chunk and budget and self.cfg.clip_len > 48
+                and not bidirectional):
             row_chunk = min(row_chunk, max(1, budget // self.cfg.clip_len))
         return EngineSpec(
             seed_len=seed_len,
@@ -794,11 +744,10 @@ class Captioner:
             clip_bos_id=self.bridge.bos_id,
             clip_eos_id=self.bridge.eos_id,
             clip_pad_id=self.bridge.pad_id,
-            # the exact bridge's rows share no provable prefix, nor do a
-            # bidirectional matcher's
-            prefix_chunks=None if exact or bidirectional else prefix_chunks,
+            # the exact bridge's rows share no provable prefix
+            prefix_chunks=None if exact else prefix_chunks,
             clip_row_chunk=row_chunk,
-            clip_pad_to=0 if bidirectional else self._clip_pad_to(),
+            clip_pad_to=self._clip_pad_to(),
             order_kind=order_kind,
             ctl=ctl,
             negative=negative,
@@ -814,26 +763,33 @@ class Captioner:
             # "auto" and "on" alike: only controlled pruned runs rank so
             stage1_ctl=(self.cfg.prune_stage1_ctl != "off"
                         and ctl is not None and prune_k is not None),
-            clip_window=0 if bidirectional else self._clip_window(),
+            clip_window=self._clip_window(),
             topk_chunk=self.cfg.topk_chunk,
             mask_impl=self.cfg.mask_impl,
             bidirectional=bidirectional,
         )
 
-    def _check_bidirectional(self) -> None:
+    def _check_bidirectional(self, prune_k: Optional[int]) -> None:
         """A bidirectional matcher's rows are its fixed length and run
-        whole: ``clip_len`` must be the text tower's positions, and the
-        window, which trims rows, is refused."""
+        whole: ``clip_len`` must be the text tower's positions; the
+        window, which trims rows, and the pruned tiers, which read a
+        causal tower's prompt K/V, are refused."""
+        if not self.clip_model.bidirectional:
+            return
+        label = self.clip_model.label
         L = self.clip_model.config.text.max_position_embeddings
         if self.cfg.clip_len != L:
             raise ValueError(
-                f"clip_len={self.cfg.clip_len} with a SigLIP matcher: its "
+                f"clip_len={self.cfg.clip_len} with a {label} matcher: its "
                 f"text tower pools the last of its {L} positions, so rows "
                 f"are {L} long; set clip_len={L}")
         if self.cfg.clip_window:
-            raise ValueError("clip_window with a SigLIP matcher: its text "
-                             "tower attends every position, so rows run "
-                             "whole")
+            raise ValueError(f"clip_window with a {label} matcher: its "
+                             "text tower attends every position, so rows "
+                             "run whole")
+        if prune_k is not None:
+            raise ValueError(f"prune_k with a {label} matcher: the pruned "
+                             "tiers read a causal text tower's prompt K/V")
 
     def _ensure_prune_tables(self, prune_k: Optional[int]) -> None:
         """The tables this run's tier reads, built on first use."""
@@ -882,9 +838,7 @@ class Captioner:
         prune_final_exact = prune_final_exact or self.cfg.prune_final_exact
         if prune_k is not None and prune_k >= top_k:
             prune_k = None
-        if prune_k is not None and self.clip_model.bidirectional:
-            raise ValueError("prune_k with a SigLIP matcher: the pruned "
-                             "tiers take a CLIP matcher only")
+        self._check_bidirectional(prune_k)
         self._ensure_prune_tables(prune_k)
         init_row = self.init_ids(prompt, max_len, 1)
         seed_len = init_row.shape[1] - max_len - 1

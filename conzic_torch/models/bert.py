@@ -5,6 +5,9 @@ gelu, learned absolute positions, token types, and the MLM transform head
 whose decoder is tied to the word embeddings plus a per-vocab bias.
 ``hidden`` runs the encoder (optionally computing the final layer only at
 ``pool_idx``), ``lm_head`` projects hidden states to fp32 vocab logits.
+:func:`hf_names` is the Hugging Face checkpoint names of BERT's and
+RoBERTa's masked LMs, the two families the model serves
+(``models/families.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from conzic_torch.config import ATTN_IMPLS
 from conzic_torch.models.configs import BertConfig
 from conzic_torch.models.layers import (
     ACTIVATIONS,
@@ -86,6 +90,13 @@ class BertMlmHead(nn.Module):
 
 
 class BertForMaskedLM(nn.Module):
+    """``attn_impls`` and ``quants``: the attention routes and the quant
+    tiers of the encoder that the model takes, every one."""
+
+    label = "BERT"
+    attn_impls = ATTN_IMPLS
+    quants = ("none", "int8")
+
     def __init__(self, config: BertConfig,
                  dtype: torch.dtype = torch.float32,
                  attn_impl: str = "pallas", quant: str = "none"):
@@ -125,3 +136,44 @@ class BertForMaskedLM(nn.Module):
                 token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.lm_head(
             self.hidden(input_ids, attention_mask, token_type_ids))
+
+
+# Hugging Face's names: the encoder layers, after "{model_type}.encoder.
+# layer.{i}."; the embeddings, after "{model_type}."; the MLM head, by
+# model_type ("mlm" is the head's own vocabulary bias)
+_HF_LAYER = {
+    "attention.query": "attention.self.query",
+    "attention.key": "attention.self.key",
+    "attention.value": "attention.self.value",
+    "attention.out": "attention.output.dense",
+    "ln1": "attention.output.LayerNorm",
+    "mlp.fc1": "intermediate.dense",
+    "mlp.fc2": "output.dense",
+    "ln2": "output.LayerNorm",
+}
+_HF_EMBEDDINGS = {
+    "embeddings.word": "embeddings.word_embeddings.weight",
+    "embeddings.position": "embeddings.position_embeddings.weight",
+    "embeddings.token_type": "embeddings.token_type_embeddings.weight",
+    "embeddings.ln": "embeddings.LayerNorm",
+}
+_HF_HEAD = {
+    "bert": {"mlm.transform": ("cls.predictions.transform.dense",),
+             "mlm.ln": ("cls.predictions.transform.LayerNorm",),
+             "mlm": ("cls.predictions", "cls.predictions.decoder")},
+    "roberta": {"mlm.transform": ("lm_head.dense",),
+                "mlm.ln": ("lm_head.layer_norm",),
+                "mlm": ("lm_head", "lm_head.decoder")},
+}
+
+
+def hf_names(model_type: str, path: str) -> tuple:
+    """The names in a ``{model_type}ForMaskedLM`` checkpoint ("bert" or
+    "roberta") of the module path ``path``, in the order they are looked
+    up."""
+    if path in _HF_EMBEDDINGS:
+        return (f"{model_type}.{_HF_EMBEDDINGS[path]}",)
+    if path in _HF_HEAD[model_type]:
+        return _HF_HEAD[model_type][path]
+    _, _, i, rest = path.split(".", 3)  # encoder.layers.{i}.{rest}
+    return (f"{model_type}.encoder.layer.{i}.{_HF_LAYER[rest]}",)

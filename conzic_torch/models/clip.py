@@ -5,6 +5,7 @@ public functions; the text tower pools at the first EOS and supports the
 exact prefix-K/V split of the engine (``text_prefix_kvs`` once, then
 ``encode_text_suffix`` for every candidate chunk). :class:`TruncatedTextTower`
 runs the first layers of the text tower: the factorized stage-1 scorer.
+:func:`hf_names` is the names of Hugging Face's ``CLIPModel`` checkpoints.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from conzic_torch.config import ATTN_IMPLS
 from conzic_torch.models.configs import (
     CLIPConfig,
     CLIPTextConfig,
@@ -163,10 +165,14 @@ class CLIPModel(nn.Module):
     text tower only (the candidate scoring), as in the reference.
     ``bidirectional``: False, its text tower is causal, so candidate rows
     may share the prompt's K/V; ``preprocessing``: CLIP's image
-    statistics."""
+    statistics; ``attn_impls`` and ``quants``: every attention route and
+    quant tier."""
 
+    label = "CLIP"
     bidirectional = False
     preprocessing = "clip"
+    attn_impls = ATTN_IMPLS
+    quants = ("none", "int8")
 
     def __init__(self, config: CLIPConfig,
                  dtype: torch.dtype = torch.float32,
@@ -235,3 +241,46 @@ class CLIPModel(nn.Module):
         cosine = torch.einsum("bkd,bd->bk", text, img)
         scaled = cosine * torch.exp(self.logit_scale).float()
         return torch.softmax(scaled, dim=-1), cosine
+
+
+# Hugging Face's names: the encoder layers of both towers, after
+# "{tower}.encoder.layers.{i}."
+HF_LAYER = {
+    "attention.query": "self_attn.q_proj",
+    "attention.key": "self_attn.k_proj",
+    "attention.value": "self_attn.v_proj",
+    "attention.out": "self_attn.out_proj",
+    "ln1": "layer_norm1",
+    "mlp.fc1": "mlp.fc1",
+    "mlp.fc2": "mlp.fc2",
+    "ln2": "layer_norm2",
+}
+_HF_OTHER = {
+    "text_model.token_embedding": (
+        "text_model.embeddings.token_embedding.weight",),
+    "text_model.position_embedding": (
+        "text_model.embeddings.position_embedding.weight",),
+    "text_model.final_ln": ("text_model.final_layer_norm",),
+    "vision_model.patch_embedding": (
+        "vision_model.embeddings.patch_embedding.weight",),
+    "vision_model.class_embedding": (
+        "vision_model.embeddings.class_embedding",),
+    "vision_model.position_embedding": (
+        "vision_model.embeddings.position_embedding.weight",),
+    # HF spells the vision pre-norm "pre_layrnorm"
+    "vision_model.pre_ln": ("vision_model.pre_layrnorm",
+                            "vision_model.pre_layernorm"),
+    "vision_model.post_ln": ("vision_model.post_layernorm",),
+    "text_projection": ("text_projection",),
+    "visual_projection": ("visual_projection",),
+    "logit_scale": ("logit_scale",),
+}
+
+
+def hf_names(path: str, other: dict = _HF_OTHER) -> tuple:
+    """The checkpoint names of the module path ``path``, in the order they
+    are looked up: ``other``'s, else an encoder layer's."""
+    if path in other:
+        return other[path]
+    tower, _, _, i, rest = path.split(".", 4)
+    return (f"{tower}.encoder.layers.{i}.{HF_LAYER[rest]}",)

@@ -43,6 +43,13 @@ class BertConfig:
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
 
+    @property
+    def model_type(self) -> str:
+        """The family (``models/families.py``): "roberta" where positions
+        start past the padding id, as only RoBERTa's do, else "bert". The
+        fields stay the JAX package's ``BertConfig``'s."""
+        return "roberta" if self.position_offset else "bert"
+
     @staticmethod
     def tiny(vocab_size: int = 1024) -> "BertConfig":
         """Small config for tests / dry-runs."""
@@ -153,6 +160,8 @@ class CLIPConfig:
     (L2-normalize, ``logit_scale.exp()`` scaled cosine).
     """
 
+    model_type = "clip"  # the family (models/families.py); not a field
+
     text: CLIPTextConfig = dataclasses.field(default_factory=CLIPTextConfig)
     vision: CLIPVisionConfig = dataclasses.field(default_factory=CLIPVisionConfig)
     projection_dim: int = 512
@@ -251,6 +260,8 @@ class SiglipConfig:
     holds no values of the two scalars; they start at the paper's
     initialisation, ln 10 and -10, until a checkpoint's replace them."""
 
+    model_type = "siglip"  # the family (models/families.py); not a field
+
     text: SiglipTextConfig = dataclasses.field(
         default_factory=SiglipTextConfig)
     vision: SiglipVisionConfig = dataclasses.field(
@@ -294,15 +305,6 @@ def _from_hf(cls, d: dict):
     return cls(**{f.name: d[_HF_NAMES.get(f.name, f.name)]
                   for f in dataclasses.fields(cls)
                   if _HF_NAMES.get(f.name, f.name) in d})
-
-
-def matcher_config_from_hf_dict(d: dict):
-    """The matcher's config from its Hugging Face dict: a
-    :class:`SiglipConfig` for ``model_type`` "siglip", else a
-    :class:`CLIPConfig`."""
-    if d.get("model_type") == "siglip":
-        return SiglipConfig.from_hf_dict(d)
-    return CLIPConfig.from_hf_dict(d)
 
 
 def load_hf_config(path: str) -> dict:

@@ -4,8 +4,8 @@ state dicts; and port modules -> ``conzic_tpu`` parameter trees
 
 ``from_hf_state_dict`` (at the end of this file) loads the HF checkpoints
 that ``Captioner.from_pretrained`` reads, as ``conzic_tpu/models/convert.py``
-does for the JAX package, and SigLIP's (``SiglipModel``), which the JAX
-package does not hold.
+does for the JAX package, by the name table of the module's family
+(``models/families.py``): SigLIP's too, which the JAX package does not hold.
 
 The inverse direction of ``conzic_tpu/models/convert.py``: ``from_jax_params``
 takes the flax parameter tree of a ``conzic_tpu`` model (nested dicts of
@@ -26,7 +26,7 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,20 +34,14 @@ from torch import nn
 
 from conzic_torch.models.bert import BertForMaskedLM
 from conzic_torch.models.clip import CLIPModel, CLIPTextTower, CLIPVisionTower
-from conzic_torch.models.configs import (
-    BertConfig,
-    CLIPConfig,
-    SiglipConfig,
-    load_hf_config,
-    matcher_config_from_hf_dict,
-)
+from conzic_torch.models.configs import load_hf_config
+from conzic_torch.models.families import family, family_of
 from conzic_torch.models.layers import (
     LayerNorm,
     Linear,
     MultiHeadAttention,
     TransformerStack,
 )
-from conzic_torch.models.siglip import SiglipModel
 
 
 def _tensor(a) -> torch.Tensor:
@@ -268,110 +262,20 @@ def to_jax_params(module: nn.Module) -> Dict:
 
 
 # ---------------------------------------------------------------------------
-# HF checkpoints: BertForMaskedLM, RobertaForMaskedLM and CLIPModel
+# HF checkpoints: each tower family's (models/families.py)
 # ---------------------------------------------------------------------------
 #
 # The port's modules keep torch's own layouts, which are HF's (Linear weight
 # (out, in), patch conv (out, in, kh, kw)), so an HF tensor loads as it is,
-# reshaped to the parameter's shape: only the names differ. Each rule maps
-# a part of a port parameter name to the candidate HF names, the first
-# present one being read. The scale of a LayerNorm is HF's ``weight``.
-
-# BERT / RoBERTa encoder layers, after "encoder.layers.{i}." and
-# "{prefix}encoder.layer.{i}."
-_BERT_LAYER = {
-    "attention.query": "attention.self.query",
-    "attention.key": "attention.self.key",
-    "attention.value": "attention.self.value",
-    "attention.out": "attention.output.dense",
-    "ln1": "attention.output.LayerNorm",
-    "mlp.fc1": "intermediate.dense",
-    "mlp.fc2": "output.dense",
-    "ln2": "output.LayerNorm",
-}
-# BERT's MLM head -> (BertForMaskedLM names, RobertaForMaskedLM names);
-# "mlm" is the head's own vocabulary bias
-_BERT_HEAD = {
-    "mlm.transform": (("cls.predictions.transform.dense",),
-                      ("lm_head.dense",)),
-    "mlm.ln": (("cls.predictions.transform.LayerNorm",),
-               ("lm_head.layer_norm",)),
-    "mlm": (("cls.predictions", "cls.predictions.decoder"),
-            ("lm_head", "lm_head.decoder")),
-}
-_BERT_EMBEDDINGS = {
-    "embeddings.word": "embeddings.word_embeddings.weight",
-    "embeddings.position": "embeddings.position_embeddings.weight",
-    "embeddings.token_type": "embeddings.token_type_embeddings.weight",
-    "embeddings.ln": "embeddings.LayerNorm",
-}
-# CLIP: encoder layers of both towers, after "encoder.layers.{i}."
-_CLIP_LAYER = {
-    "attention.query": "self_attn.q_proj",
-    "attention.key": "self_attn.k_proj",
-    "attention.value": "self_attn.v_proj",
-    "attention.out": "self_attn.out_proj",
-    "ln1": "layer_norm1",
-    "mlp.fc1": "mlp.fc1",
-    "mlp.fc2": "mlp.fc2",
-    "ln2": "layer_norm2",
-}
-_CLIP_OTHER = {
-    "text_model.token_embedding": (
-        "text_model.embeddings.token_embedding.weight",),
-    "text_model.position_embedding": (
-        "text_model.embeddings.position_embedding.weight",),
-    "text_model.final_ln": ("text_model.final_layer_norm",),
-    "vision_model.patch_embedding": (
-        "vision_model.embeddings.patch_embedding.weight",),
-    "vision_model.class_embedding": (
-        "vision_model.embeddings.class_embedding",),
-    "vision_model.position_embedding": (
-        "vision_model.embeddings.position_embedding.weight",),
-    # HF spells the vision pre-norm "pre_layrnorm"
-    "vision_model.pre_ln": ("vision_model.pre_layrnorm",
-                            "vision_model.pre_layernorm"),
-    "vision_model.post_ln": ("vision_model.post_layernorm",),
-    "text_projection": ("text_projection",),
-    "visual_projection": ("visual_projection",),
-    "logit_scale": ("logit_scale",),
-}
-
-
-# SigLIP: its encoder layers are named as CLIP's
-_SIGLIP_OTHER = {
-    "text_model.token_embedding": (
-        "text_model.embeddings.token_embedding.weight",),
-    "text_model.position_embedding": (
-        "text_model.embeddings.position_embedding.weight",),
-    "text_model.final_ln": ("text_model.final_layer_norm",),
-    "text_model.head": ("text_model.head",),
-    "vision_model.patch_embedding": (
-        "vision_model.embeddings.patch_embedding.weight",),
-    "vision_model.patch_bias": (
-        "vision_model.embeddings.patch_embedding.bias",),
-    "vision_model.position_embedding": (
-        "vision_model.embeddings.position_embedding.weight",),
-    "vision_model.post_ln": ("vision_model.post_layernorm",),
-    # the pooling head's nn.MultiheadAttention is "attention"
-    "vision_model.head.probe": ("vision_model.head.probe",),
-    "vision_model.head.in_proj_weight": (
-        "vision_model.head.attention.in_proj_weight",),
-    "vision_model.head.in_proj_bias": (
-        "vision_model.head.attention.in_proj_bias",),
-    "vision_model.head.out_proj": ("vision_model.head.attention.out_proj",),
-    "vision_model.head.layernorm": ("vision_model.head.layernorm",),
-    "vision_model.head.mlp.fc1": ("vision_model.head.mlp.fc1",),
-    "vision_model.head.mlp.fc2": ("vision_model.head.mlp.fc2",),
-    "logit_scale": ("logit_scale",),
-    "logit_bias": ("logit_bias",),
-}
+# reshaped to the parameter's shape: only the names differ. A family's name
+# table maps a module path to the candidate HF names, the first present one
+# being read. The scale of a LayerNorm is HF's ``weight``.
 
 
 def _leaf(name: str) -> tuple:
     """A port parameter name -> (module path, HF suffix): LayerNorm's
     ``scale`` is HF's ``weight``; an embedding table has no suffix (its
-    HF name in the tables above is whole)."""
+    HF name in the family's table is whole)."""
     for tail, hf in ((".scale", ".weight"), (".weight", ".weight"),
                      (".bias", ".bias")):
         if name.endswith(tail):
@@ -379,49 +283,24 @@ def _leaf(name: str) -> tuple:
     return name, ""
 
 
-def _hf_prefix(sd: Mapping) -> str:
-    """"bert.", "roberta." or "" (a bare encoder)."""
-    for prefix in ("roberta.", "bert."):
-        if any(k.startswith(prefix) for k in sd):
-            return prefix
-    return ""
-
-
-def hf_names(module: nn.Module, name: str, prefix: str = "bert.") -> tuple:
+def hf_names(module: nn.Module, name: str) -> tuple:
     """The HF state-dict names of the port parameter ``name`` of
-    ``module`` (a :class:`BertForMaskedLM` whose HF names start with
-    ``prefix``, a :class:`CLIPModel` or a :class:`SiglipModel`), in the
-    order they are looked up."""
+    ``module``, in the order they are looked up: its config's family's
+    table."""
     path, suffix = _leaf(name)
-    if isinstance(module, BertForMaskedLM):
-        if path in _BERT_EMBEDDINGS:
-            return (prefix + _BERT_EMBEDDINGS[path] + suffix,)
-        if path in _BERT_HEAD:
-            bert, roberta = _BERT_HEAD[path]
-            return tuple(n + suffix for n in
-                         (roberta if prefix == "roberta." else bert))
-        _, _, i, rest = path.split(".", 3)  # encoder.layers.{i}.{rest}
-        return (f"{prefix}encoder.layer.{i}.{_BERT_LAYER[rest]}{suffix}",)
-    if isinstance(module, (CLIPModel, SiglipModel)):
-        other = _CLIP_OTHER if isinstance(module, CLIPModel) else _SIGLIP_OTHER
-        if path in other:
-            return tuple(n + suffix for n in other[path])
-        tower, _, _, i, rest = path.split(".", 4)
-        return (f"{tower}.encoder.layers.{i}.{_CLIP_LAYER[rest]}{suffix}",)
-    raise TypeError(f"hf_names: no layout for {type(module)}")
+    return tuple(n + suffix
+                 for n in family_of(module.config).hf_names(path))
 
 
 def from_hf_state_dict(module: nn.Module, sd: Mapping) -> nn.Module:
     """Load an HF state dict (name -> tensor or numpy array) into
     ``module`` in place; returns it. Every parameter must be found."""
-    prefix = _hf_prefix(sd) if isinstance(module, BertForMaskedLM) else ""
     for name, param in module.named_parameters():
-        names = hf_names(module, name, prefix)
+        names = hf_names(module, name)
         key = next((n for n in names if n in sd), None)
         if key is None:
-            raise KeyError(f"the checkpoint has none of {names} for "
-                           f"{name} (not a *ForMaskedLM / CLIPModel / "
-                           f"SiglipModel export?)")
+            raise KeyError(f"the checkpoint has none of {names} for {name} "
+                           f"(not a {module.config.model_type} export?)")
         _set(param, _tensor(sd[key]).reshape(param.shape))
     return module
 
@@ -475,15 +354,9 @@ def load_state_dict(checkpoint_dir: str) -> Dict[str, torch.Tensor]:
         f"no model.safetensors / pytorch_model.bin under {checkpoint_dir}")
 
 
-def load_bert(checkpoint_dir: str) -> Tuple[BertConfig, Dict]:
-    """(config, state dict) of an HF BERT or RoBERTa masked-LM directory."""
-    config = BertConfig.from_hf_dict(load_hf_config(checkpoint_dir))
-    return config, load_state_dict(checkpoint_dir)
-
-
-def load_clip(checkpoint_dir: str
-              ) -> Tuple[Union[CLIPConfig, SiglipConfig], Dict]:
-    """(config, state dict) of an HF CLIP or SigLIP directory, told apart
-    by its config's ``model_type``."""
-    config = matcher_config_from_hf_dict(load_hf_config(checkpoint_dir))
+def load_checkpoint(checkpoint_dir: str, role: str) -> Tuple[object, Dict]:
+    """(config, state dict) of a local HF directory whose config's
+    ``model_type`` names a family of ``role`` ("lm" or "match")."""
+    d = load_hf_config(checkpoint_dir)
+    config = family(d.get("model_type"), role).config.from_hf_dict(d)
     return config, load_state_dict(checkpoint_dir)

@@ -10,6 +10,8 @@ position, whatever token is there. So a candidate row shares no reusable
 state with the prompt and runs whole (the engine's ``bidirectional``
 path); :func:`encode_full_rows` is its entry. Its attention runs on the
 library route (``attn_impl`` "xla" and its variants) only.
+:func:`hf_names` is the names of Hugging Face's ``SiglipModel``
+checkpoints.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from conzic_torch.models import clip
 from conzic_torch.models.configs import (
     SiglipConfig,
     SiglipTextConfig,
@@ -32,7 +35,7 @@ from conzic_torch.models.layers import (
     TransformerStack,
     cast_param,
 )
-from conzic_torch.ops.attention import AttnMask, xla_attention
+from conzic_torch.ops.attention import XLA_IMPLS, AttnMask, xla_attention
 from conzic_torch.runtime import profiling
 from conzic_torch.runtime.profiling import span
 
@@ -146,16 +149,21 @@ class SiglipModel(nn.Module):
     """The two towers and the two scalars of the scores, kept in fp32.
     Called by the engine as a ``CLIPModel`` is (``encode_image``,
     ``encode_text``, ``similarity``); ``bidirectional`` tells it that
-    candidate rows run whole (no prompt K/V, no window), and
-    ``preprocessing`` which image statistics the tower takes."""
+    candidate rows run whole (no prompt K/V, no window, no pruned tier),
+    and ``preprocessing`` which image statistics the tower takes. It runs
+    on the library route unquantized (``attn_impls``, ``quants``)."""
 
+    label = "SigLIP"
     bidirectional = True
     preprocessing = "siglip"
+    attn_impls = XLA_IMPLS
+    quants = ("none",)
 
     def __init__(self, config: SiglipConfig,
-                 dtype: torch.dtype = torch.float32, attn_impl: str = "xla"):
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "xla",
+                 quant: str = "none"):
         super().__init__()
-        self.config, self.dtype = config, dtype
+        self.config, self.dtype, self.quant = config, dtype, quant
         self.text_model = SiglipTextTower(config.text, dtype, attn_impl)
         self.vision_model = SiglipVisionTower(config.vision, dtype,
                                               attn_impl)
@@ -200,3 +208,39 @@ def encode_full_rows(model: SiglipModel,
     positions it encodes as ``towers.match_text_positions``."""
     profiling.count(profiling.MATCH_TEXT_POSITIONS, input_ids.numel())
     return model.encode_text(input_ids)
+
+
+# Hugging Face's names; the encoder layers are named as CLIP's
+_HF_OTHER = {
+    "text_model.token_embedding": (
+        "text_model.embeddings.token_embedding.weight",),
+    "text_model.position_embedding": (
+        "text_model.embeddings.position_embedding.weight",),
+    "text_model.final_ln": ("text_model.final_layer_norm",),
+    "text_model.head": ("text_model.head",),
+    "vision_model.patch_embedding": (
+        "vision_model.embeddings.patch_embedding.weight",),
+    "vision_model.patch_bias": (
+        "vision_model.embeddings.patch_embedding.bias",),
+    "vision_model.position_embedding": (
+        "vision_model.embeddings.position_embedding.weight",),
+    "vision_model.post_ln": ("vision_model.post_layernorm",),
+    # the pooling head's nn.MultiheadAttention is "attention"
+    "vision_model.head.probe": ("vision_model.head.probe",),
+    "vision_model.head.in_proj_weight": (
+        "vision_model.head.attention.in_proj_weight",),
+    "vision_model.head.in_proj_bias": (
+        "vision_model.head.attention.in_proj_bias",),
+    "vision_model.head.out_proj": ("vision_model.head.attention.out_proj",),
+    "vision_model.head.layernorm": ("vision_model.head.layernorm",),
+    "vision_model.head.mlp.fc1": ("vision_model.head.mlp.fc1",),
+    "vision_model.head.mlp.fc2": ("vision_model.head.mlp.fc2",),
+    "logit_scale": ("logit_scale",),
+    "logit_bias": ("logit_bias",),
+}
+
+
+def hf_names(path: str) -> tuple:
+    """The checkpoint names of the module path ``path``, in the order they
+    are looked up."""
+    return clip.hf_names(path, _HF_OTHER)

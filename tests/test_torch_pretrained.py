@@ -170,11 +170,9 @@ def test_name_table_reads_every_hf_tensor(dirs, lm):
     _, pc = _caps(dirs, lm)
     for module, name in ((pc.bert_model, lm), (pc.clip_model, "clip")):
         sd = load_state_dict(dirs[name][0])
-        prefix = "roberta." if lm == "roberta" and module is pc.bert_model \
-            else "bert."
         read = set()
         for pname, p in module.named_parameters():
-            key = next(n for n in hf_names(module, pname, prefix) if n in sd)
+            key = next(n for n in hf_names(module, pname) if n in sd)
             assert sd[key].numel() == p.numel(), pname
             read.add(key)
         unread = {k for k in sd if k not in read}

@@ -278,9 +278,7 @@ def test_clip_takes_the_prefix_kv_and_siglip_never(world, monkeypatch):
     cfg, fams, vocab, weights = world
     cap = system.build(cfg, TRAFFIC, fams, vocab, weights, "cpu")
     assert not hasattr(cap.clip_model, "text_prefix_kvs")
-    spec = cap._spec(4, 3, 8, ((4, 3),))
-    assert spec.bidirectional and spec.prefix_chunks is None
-    assert spec.clip_window == 0 and spec.clip_pad_to == 0
+    assert cap._spec(4, 3, 8, ((4, 3),)).bidirectional
     generate(cap, siglip_family.pixels(cfg, 1, 2, "cpu"))
     assert calls["prefix"] == 1
     # 3 steps, each all 2 x 8 rows whole at 64 positions
