@@ -412,18 +412,24 @@ class Case:
                                                             "operations")
 
 
-def ln_case(label, rows, feat, eps, dtype, gen) -> Case:
+def ln_case(label, rows, feat, eps, dtype, gen, param_dtype=None) -> Case:
+    """``param_dtype``: the type of scale and bias, by default x's (the
+    main path here stores weights in bf16, param_dtype="bfloat16").
+    ``F.layer_norm`` takes parameters of x's type only: its yardstick gets
+    them cast beforehand."""
     x = (torch.randn(rows, feat, device=DEVICE, generator=gen) * 3 + 1)
     x = x.to(dtype)
-    # the main path stores weights in bf16 (param_dtype="bfloat16")
-    scale = (torch.rand(feat, device=DEVICE, generator=gen) + 0.5).to(dtype)
-    bias = torch.randn(feat, device=DEVICE, generator=gen).to(dtype)
+    param_dtype = param_dtype or dtype
+    scale = (torch.rand(feat, device=DEVICE, generator=gen) + 0.5).to(
+        param_dtype)
+    bias = torch.randn(feat, device=DEVICE, generator=gen).to(param_dtype)
+    lib_scale, lib_bias = scale.to(dtype), bias.to(dtype)
     elem = x.element_size()
     return Case(
         "layer_norm", label, dtype,
         lambda: layer_norm(x, scale, bias, eps),
         lambda: layer_norm_plain(x, scale, bias, eps),
-        lambda: F.layer_norm(x, (feat,), scale, bias, eps),
+        lambda: F.layer_norm(x, (feat,), lib_scale, lib_bias, eps),
         n_bytes=2 * rows * feat * elem + 2 * feat * scale.element_size(),
         n_ops=8 * rows * feat)
 
@@ -699,6 +705,31 @@ def main_path_cases(shape, dtype, gen) -> List[Case]:
         qg_case("vision rows", (B, 50, F_vis), dtype, gen),
         qg_case("b32 cell's text chunk", (800 * 28, F_text), dtype, gen),
         qg_case("l14 cell's text chunk", (800 * 28, F_vis), dtype, gen),
+    ]
+
+
+def cell_ln_cases(shape, dtype, gen) -> List[Case]:
+    """LayerNorm at the benchmark cells' shapes with their types: x in the
+    compute type, scale and bias in fp32 as the towers hold them (api.run's
+    fp32 parameters, passed uncast). so400m's text chunk (800 whole rows of
+    64 positions) and its pooled rows, 1,152 wide, exceed the fp32 kernel's
+    1,024 and run in bf16 only; l14's text chunk (800 rows of clip_len 32
+    less the prompt) and vision rows (257 positions an image); BERT's."""
+    B, P, L = shape["B"], shape["P"], shape["bert_len"]
+    f32 = torch.float32
+    so400m = [] if dtype != torch.bfloat16 else [
+        ln_case("so400m cell's text chunk, fp32 parameters", 800 * 64, 1152,
+                1e-6, dtype, gen, f32),
+        ln_case("so400m cell's pooled rows, fp32 parameters", 800, 1152,
+                1e-6, dtype, gen, f32),
+    ]
+    return so400m + [
+        ln_case("l14 cell's text chunk, fp32 parameters", 800 * (32 - P),
+                768, 1e-5, dtype, gen, f32),
+        ln_case("l14 cell's vision rows, fp32 parameters", B * 257, 1024,
+                1e-5, dtype, gen, f32),
+        ln_case("bert rows, fp32 parameters", B * L, 768, 1e-12, dtype, gen,
+                f32),
     ]
 
 
@@ -1083,11 +1114,15 @@ def host_us(fn: Callable[[], object], calls: int = HOST_CALLS) -> float:
 def phase_kernels(shape) -> dict:
     """Returns, per kernel, the numbers of its dominant bf16 case."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
+    # the cells' LayerNorm cases draw from their own generator, so that the
+    # other cases' inputs stay as they were
+    cell_gen = torch.Generator(device=DEVICE).manual_seed(1)
     summary = {}
     failures = []
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).replace("torch.", "")
-        for case in main_path_cases(shape, dtype, gen):
+        for case in (main_path_cases(shape, dtype, gen)
+                     + cell_ln_cases(shape, dtype, cell_gen)):
             ok, err, tol = check_case(case)
             ms = time_ms(case.kernel_fn, 50)
             plain_ms = time_ms(case.plain_fn, 20)

@@ -11,6 +11,11 @@ through :class:`LayerNormFunction`, the counterpart of the reference's custom
 VJP (``fused_ln.py:34-72``): the same forward, and the reference's backward
 in plain PyTorch (:func:`layer_norm_backward_plain`), as the reference's is
 plain jnp. Serving runs under ``inference_mode`` and calls the forward alone.
+
+The kernel picks its instance (the 16-byte vectors a lane holds) from the
+row's width and its grid from the row count and the card; while the
+program's spans are live each call counts under
+``profiling.LAYER_NORM_CALLS`` with the plan it took.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import ctypes
 import torch
 
 from conzic_torch.kernels import build
+from conzic_torch.runtime import profiling
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -88,6 +94,11 @@ def _lib() -> ctypes.CDLL:
         lib.conzic_layer_norm.restype = ctypes.c_int
         lib.conzic_layer_norm_max_features.argtypes = [ctypes.c_int]
         lib.conzic_layer_norm_max_features.restype = ctypes.c_int
+        lib.conzic_layer_norm_plan.argtypes = [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.conzic_layer_norm_plan.restype = ctypes.c_int
         lib._conzic_typed = True
     return lib
 
@@ -137,15 +148,32 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                          f"{lib.conzic_layer_norm_max_features(elem)}")
     out = torch.empty_like(x)
     rows = x.numel() // F if F else 0
+    x_bf16 = int(x.dtype == torch.bfloat16)
+    p_bf16 = int(scale.dtype == torch.bfloat16)
     code = lib.conzic_layer_norm(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        rows, F, float(eps), int(x.dtype == torch.bfloat16),
-        int(scale.dtype == torch.bfloat16),
+        rows, F, float(eps), x_bf16, p_bf16,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(lib, code, "layer_norm")
     build.count_launch(layer_norm)
+    if profiling.live() and rows:
+        vecs, _, rows_per_warp = layer_norm_plan(rows, F, x_bf16, p_bf16)
+        profiling.count(f"{profiling.LAYER_NORM_CALLS}.vecs{vecs}"
+                        f".rows_per_warp{rows_per_warp}")
     return out
+
+
+def layer_norm_plan(rows: int, features: int, x_bf16: int, p_bf16: int):
+    """How the kernel runs ``rows`` x ``features`` on the current card:
+    (16-byte vectors a lane holds, blocks of 128 threads, rows the busiest
+    warp takes). Launches nothing."""
+    lib = _lib()
+    plan = (ctypes.c_int * 3)()
+    build.check(lib, lib.conzic_layer_norm_plan(rows, features, x_bf16,
+                                                p_bf16, plan),
+                "layer_norm plan")
+    return tuple(plan)
 
 
 layer_norm.launches = 0

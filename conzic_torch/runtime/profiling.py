@@ -32,7 +32,10 @@ bidirectional matcher's text tower encodes, rows times their width a
 chunk (``models/siglip.py`` ``encode_full_rows``);
 ``towers.attention_kernel_calls`` and ``towers.attention_library_calls``,
 the einsum attentions of the ``"xla"`` routes that ran the hand-written
-kernel or the library formula (``ops/attention.py`` ``xla_attention``).
+kernel or the library formula (``ops/attention.py`` ``xla_attention``);
+``towers.layer_norm_calls.vecs<V>.rows_per_warp<R>``, the LayerNorm kernel's
+calls by the plan they took: the instance (V 16-byte vectors a lane) and
+the rows its busiest warp walked (``kernels/layer_norm.py``).
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ WEIGHT_CASTS = "towers.weight_casts"
 MATCH_TEXT_POSITIONS = "towers.match_text_positions"
 ATTENTION_KERNEL_CALLS = "towers.attention_kernel_calls"
 ATTENTION_LIBRARY_CALLS = "towers.attention_library_calls"
+LAYER_NORM_CALLS = "towers.layer_norm_calls"
 
 _lock = threading.Lock()
 _live = 0  # request spans and traces open while a profiler records
@@ -88,6 +92,12 @@ def span(name: str):
     if not _on:
         return _OFF
     return torch.profiler.record_function(PREFIX + name)
+
+
+def live() -> bool:
+    """Whether the spans and counters are live: for a site whose count
+    costs work of its own."""
+    return _on
 
 
 def count(name: str, n: int = 1) -> None:

@@ -177,6 +177,24 @@ def test_counters_lose_no_update_under_threads():
     assert not profiling._on
 
 
+def test_live_holds_inside_a_request_span_under_a_profiler():
+    """``live`` tells a site whose count costs work of its own (the
+    LayerNorm kernel's plan) whether to do it; the CPU's LayerNorm is the
+    plain version and counts no plan."""
+    from conzic_torch.kernels.layer_norm import layer_norm
+
+    profiling.take_counts()
+    x = torch.randn(3, 64)
+    assert not profiling.live()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert not profiling.live()
+        with profiling.request_span("engine.generate"):
+            assert profiling.live()
+            layer_norm(x, torch.ones(64), torch.zeros(64), 1e-5)
+        assert not profiling.live()
+    assert profiling.take_counts() == {}
+
+
 def test_run_writes_a_trace_with_the_spans(tmp_path, monkeypatch):
     trace_dir = tmp_path / "trace"
     monkeypatch.setenv("CONZIC_TRACE_DIR", str(trace_dir))
