@@ -171,7 +171,12 @@ from conzic_torch.api import run as run_cli
 from conzic_torch.config import KERNEL_IMPLS, ConzicConfig
 from conzic_torch.data import synthetic
 from conzic_torch.engine.gibbs import row_chunk_width
-from conzic_torch.engine.sampler import PRUNE_TABLES, Captioner
+from conzic_torch.engine.sampler import (
+    PRUNE_TABLES,
+    Captioner,
+    build_towers,
+    random_init_,
+)
 from conzic_torch.eval import ndiv
 from conzic_torch.eval.sentiment_eval import (
     _nltk_ready,
@@ -209,6 +214,7 @@ from conzic_torch.models.checkpoint import load_tiny_checkpoint
 from conzic_torch.models.configs import (
     BertConfig,
     CLIPConfig,
+    SdarMoeConfig,
     SiglipConfig,
 )
 from conzic_torch.models.convert import hf_names
@@ -227,10 +233,13 @@ from conzic_torch.parallel import distributed as dist_lib
 from conzic_torch.parallel.mesh import make_mesh, make_mesh_2d
 from conzic_torch.parallel.vocab import VOCAB_PARAMS, VocabSplitBert
 from conzic_torch.runtime.image import preprocess_pil, preprocess_torch
+from conzic_torch.text.bpe import CLIPBPETokenizer
 from conzic_torch.text.lexicons import UNIVERSAL_TAGS, _nltk_available
+from conzic_torch.text.qwen_bpe import QwenBPETokenizer
 from conzic_torch.text.vocab import (
     make_fullsize_wordpiece_vocab,
     make_test_bpe_files,
+    make_test_qwen_files,
     make_test_wordpiece_vocab,
 )
 from conzic_torch.train import optim as train_optim
@@ -2259,6 +2268,9 @@ TINY_SIGLIP = dataclasses.replace(
     SiglipConfig.tiny(), vision=dataclasses.replace(
         SiglipConfig.tiny().vision, image_size=168))
 TINY_SIGLIP_RUN = dict(images=2, top_k=8, max_len=4, iters=2, row_chunk=8)
+# a tiny SDAR proposer (2 layers of 4 query and 2 key/value heads of 16, 8
+# experts of 32, top 2, experts 2 to 5 held) with the tiny CLIP
+TINY_SDAR_HELD = dict(experts_held=4, expert_offset=2)
 # the full-width reads of the new paths: (label, attn_impl, quant)
 NEW_MAIN_PATHS = (("int8", "pallas", "int8"),
                   ("int8_all", "pallas", "int8_all"),
@@ -2380,6 +2392,74 @@ def phase_siglip_agreement() -> None:
     if launches != want or image_launches or not rel(got) <= 2 * rel(lib):
         raise AssertionError("tiny SigLIP in bf16: dot_product_attention's "
                              "launches or its embeddings")
+
+
+def tiny_sdar(dtype: str, device) -> Captioner:
+    """The tiny SDAR captioner (``SdarMoeConfig.tiny`` holding
+    ``TINY_SDAR_HELD``, the tiny CLIP, the miniature Qwen2 and CLIP BPEs)
+    in ``dtype`` on ``device``: seeded weights drawn on the CPU, the same
+    whatever the type and the device."""
+    cfg = ConzicConfig(dtype=dtype, attn_impl="xla")
+    cfg.clip_row_chunk = TINY_SIGLIP_RUN["row_chunk"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vocab_") as d:
+        tok = QwenBPETokenizer.from_pretrained(make_test_qwen_files(d))
+        bpe = CLIPBPETokenizer.from_files(*make_test_bpe_files(d))
+    clip_cfg = CLIPConfig.tiny()
+    clip_cfg = dataclasses.replace(clip_cfg, text=dataclasses.replace(
+        clip_cfg.text, vocab_size=max(bpe.vocab_size,
+                                      clip_cfg.text.vocab_size),
+        eos_token_id=bpe.eos_token_id))
+    lm_cfg = SdarMoeConfig.tiny(vocab_size=tok.vocab_size, **TINY_SDAR_HELD)
+    with torch.device("cpu"):
+        lm, clip = build_towers(lm_cfg, clip_cfg, cfg)
+    random_init_([lm, clip], 7, torch.device("cpu"))
+    return Captioner(lm, clip, tok, bpe, cfg, device=device)
+
+
+def phase_sdar_agreement() -> None:
+    """A tiny SDAR captioner (``tiny_sdar``), card against CPU in fp32:
+    identical caption ids (the card replays SDAR's layers as a CUDA graph,
+    the CPU runs them eagerly). Then in bf16 on the card, the launches of a
+    generation: SDAR's layers launch none of the port's kernels (its
+    attention takes the library formula under the block rule, its norms
+    are RMSNorms), so the LayerNorm, quick_gelu and dot_product_attention
+    launches are CLIP's alone: per step each row chunk's text layers, per
+    generation the prompt's prefix and the vision tower."""
+    t = TINY_SIGLIP_RUN
+    B, k = t["images"], t["top_k"]
+    args = run_args(max_len=t["max_len"], top_k=k, max_iter=t["iters"],
+                    order="shuffle")
+    cpu = tiny_sdar("float32", "cpu")
+    px = seeded_pixels(cpu, B, seed=5)
+    emb = cpu.encode_images(px)
+    a = cpu.run(emb, rng=np.random.RandomState(7), **args)
+    gpu = tiny_sdar("float32", DEVICE)
+    b = gpu.run(emb, rng=np.random.RandomState(7), **args)
+    same, _, cos_err = compare_runs(a, b)
+    say(f"agreement [tiny SDAR, fp32]: caption ids identical={same} max "
+        f"cosine diff={cos_err:.3g} (tol {AGREE_COS_ATOL:g})")
+    if not same or cos_err > AGREE_COS_ATOL:
+        raise AssertionError("tiny SDAR: card and CPU differ in fp32")
+
+    cap = tiny_sdar("bfloat16", DEVICE)
+    reset_launches()
+    cap.run(cap.encode_images(px), rng=np.random.RandomState(7), **args)
+    launches = read_launches()
+    steps = t["iters"] * t["max_len"]
+    chunks = n_row_chunks(B, k, cap.cfg.clip_row_chunk)
+    nt = cap.clip_model.config.text.num_layers
+    nv = cap.clip_model.config.vision.num_layers
+    want = {"layer_norm": steps * chunks * (2 * nt + 1) + (2 * nt + 1)
+            + (2 * nv + 2),
+            "quick_gelu": steps * chunks * nt + nt + nv,
+            "dot_product_attention": steps * chunks * nt + nt + nv,
+            "masked_attention": 0, "attention_with_out": 0,
+            "attention_block": 0}
+    got = {name: launches[name] for name in want}
+    say(f"tiny SDAR [bf16 on the card]: launches {got} over {steps} Gibbs "
+        f"steps, {chunks} row chunks a step ({want} by CLIP's structure)")
+    if got != want:
+        raise AssertionError("tiny SDAR in bf16: kernel launches")
 
 
 def thread_launch_race(reps: int = 4000) -> None:
@@ -3558,6 +3638,7 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     phase_route_agreement()
     phase_siglip_agreement()
+    phase_sdar_agreement()
     phase_mesh_agreement()
     phase_two_process_tiny()
     say(f"phase route and scale-out agreement ok "

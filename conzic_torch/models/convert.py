@@ -5,7 +5,10 @@ state dicts; and port modules -> ``conzic_tpu`` parameter trees
 ``from_hf_state_dict`` (at the end of this file) loads the HF checkpoints
 that ``Captioner.from_pretrained`` reads, as ``conzic_tpu/models/convert.py``
 does for the JAX package, by the name table of the module's family
-(``models/families.py``): SigLIP's too, which the JAX package does not hold.
+(``models/families.py``): SigLIP's and SDAR's too, which the JAX package
+does not hold; SDAR's stacked matrices (a layer's q, k and v, its held
+experts' gates and ups, their downs) are joined from their parts
+(:func:`joined`).
 
 The inverse direction of ``conzic_tpu/models/convert.py``: ``from_jax_params``
 takes the flax parameter tree of a ``conzic_tpu`` model (nested dicts of
@@ -286,10 +289,40 @@ def _leaf(name: str) -> tuple:
 def hf_names(module: nn.Module, name: str) -> tuple:
     """The HF state-dict names of the port parameter ``name`` of
     ``module``, in the order they are looked up: its config's family's
-    table."""
+    table. A tuple among them names the parts that are joined end to end
+    into the parameter (:func:`joined`)."""
     path, suffix = _leaf(name)
-    return tuple(n + suffix
-                 for n in family_of(module.config).hf_names(path))
+    return tuple(n + suffix if isinstance(n, str) else n
+                 for n in family_of(module.config).hf_names(
+                     path, module.config))
+
+
+def joined(parts) -> torch.Tensor:
+    """The parts flattened and joined end to end, as ``torch.cat`` of their
+    flat views makes them; a view that copies nothing where they already
+    lie so in one storage, each contiguous: a state dict drawn as views of
+    one buffer is then not held twice, the parts' buffer and the copy."""
+    a = parts[0]
+    end, base = a.storage_offset(), a.untyped_storage().data_ptr()
+    for p in parts:
+        if not (p.is_contiguous() and p.dtype == a.dtype
+                and p.device == a.device
+                and p.untyped_storage().data_ptr() == base
+                and p.storage_offset() == end):
+            return torch.cat([q.reshape(-1) for q in parts])
+        end += p.numel()
+    return a.as_strided((end - a.storage_offset(),), (1,),
+                        a.storage_offset())
+
+
+def _found(sd: Mapping, key) -> bool:
+    return all(k in sd for k in key) if isinstance(key, tuple) else key in sd
+
+
+def _read(sd: Mapping, key) -> torch.Tensor:
+    if isinstance(key, tuple):
+        return joined([_tensor(sd[k]) for k in key])
+    return _tensor(sd[key])
 
 
 def from_hf_state_dict(module: nn.Module, sd: Mapping) -> nn.Module:
@@ -297,11 +330,11 @@ def from_hf_state_dict(module: nn.Module, sd: Mapping) -> nn.Module:
     ``module`` in place; returns it. Every parameter must be found."""
     for name, param in module.named_parameters():
         names = hf_names(module, name)
-        key = next((n for n in names if n in sd), None)
+        key = next((n for n in names if _found(sd, n)), None)
         if key is None:
             raise KeyError(f"the checkpoint has none of {names} for {name} "
                            f"(not a {module.config.model_type} export?)")
-        _set(param, _tensor(sd[key]).reshape(param.shape))
+        _set(param, _read(sd, key).reshape(param.shape))
     return module
 
 

@@ -1,6 +1,7 @@
 """The tower families, keyed by the Hugging Face ``model_type``, for the
-two roles: ``lm``, the masked-LM proposer (bert, roberta), and ``match``,
-the dual-encoder matcher (clip, siglip).
+two roles: ``lm``, the proposer that gives the distribution at a masked
+slot (bert, roberta; sdar_moe, a block-diffusion LM with experts), and
+``match``, the dual-encoder matcher (clip, siglip).
 
 A family names its config class (``from_hf_dict``, ``tiny``), its model
 class, its tokenizer class (``from_pretrained``), the checkpoint names of
@@ -23,9 +24,15 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
-from conzic_torch.models import bert, clip, siglip
-from conzic_torch.models.configs import BertConfig, CLIPConfig, SiglipConfig
+from conzic_torch.models import bert, clip, sdar, siglip
+from conzic_torch.models.configs import (
+    BertConfig,
+    CLIPConfig,
+    SdarMoeConfig,
+    SiglipConfig,
+)
 from conzic_torch.text.bpe import CLIPBPETokenizer
+from conzic_torch.text.qwen_bpe import QwenBPETokenizer
 from conzic_torch.text.roberta_bpe import RobertaBPETokenizer
 from conzic_torch.text.unigram import (
     TEST_UNK_ID,
@@ -44,8 +51,10 @@ class Family:
     config: type
     model: type
     tokenizer: type
-    # a module path of the model -> its checkpoint names, in lookup order
-    hf_names: Callable[[str], Tuple[str, ...]]
+    # (a module path of the model, its config) -> its checkpoint names, in
+    # lookup order; a tuple among them names the parts joined into one
+    # parameter
+    hf_names: Callable[[str, object], Tuple]
     # (proposer's tokenizer, config) -> the matcher's synthetic tokenizer
     test_tokenizer: Optional[Callable] = None
     # (text config, tokenizer) -> the text config the tokenizer implies
@@ -64,6 +73,11 @@ class Family:
                              f"{role}: the attention kernels do not take "
                              f"it; use one of {m.attn_impls}")
         return m(config, dtype=dtype, attn_impl=attn_impl, quant=quant)
+
+
+def _names(fn: Callable[[str], Tuple[str, ...]]) -> Callable:
+    """The names of a family whose names do not depend on its config."""
+    return lambda path, config: fn(path)
 
 
 def _clip_bpe(proposer_tokenizer, config: CLIPConfig) -> CLIPBPETokenizer:
@@ -89,14 +103,17 @@ def _siglip_pieces(proposer_tokenizer, config: SiglipConfig
 FAMILIES = {
     "bert": Family("lm", BertConfig, bert.BertForMaskedLM,
                    WordPieceTokenizer,
-                   functools.partial(bert.hf_names, "bert")),
+                   _names(functools.partial(bert.hf_names, "bert"))),
     "roberta": Family("lm", BertConfig, bert.BertForMaskedLM,
                       RobertaBPETokenizer,
-                      functools.partial(bert.hf_names, "roberta")),
+                      _names(functools.partial(bert.hf_names, "roberta"))),
+    "sdar_moe": Family("lm", SdarMoeConfig, sdar.SdarMoeLM,
+                       QwenBPETokenizer, sdar.hf_names),
     "clip": Family("match", CLIPConfig, clip.CLIPModel, CLIPBPETokenizer,
-                   clip.hf_names, _clip_bpe, _clip_eos),
+                   _names(clip.hf_names), _clip_bpe, _clip_eos),
     "siglip": Family("match", SiglipConfig, siglip.SiglipModel,
-                     SiglipTokenizer, siglip.hf_names, _siglip_pieces),
+                     SiglipTokenizer, _names(siglip.hf_names),
+                     _siglip_pieces),
 }
 
 

@@ -11,7 +11,8 @@ Counterpart of ``conzic_tpu/runtime/profiling.py``:
     which read one module flag. With no profiler the sites cost that flag
     read; a ``record_function`` with none would cost some 11 us a call.
   - ``count`` and ``take_counts``: in-memory counters that count only
-    while the spans are live, read and reset by the caller.
+    while the spans are live (on the host, or on the device for a count
+    that lies there), read and reset by the caller.
   - ``trace``: ``torch.profiler`` over a block, CPU (every thread) and,
     when there is a card, CUDA activity, written as a Chrome trace into
     ``trace_dir`` or ``$CONZIC_TRACE_DIR``; a no-op when neither is set.
@@ -25,8 +26,12 @@ matcher, SigLIP's: one a chunk of whole rows), ``engine.commit``; then
 span or sweep, beside the steps. ``entry.encode_images`` runs the image
 tower, ``entry.preprocess`` a batch's preprocessing on the command line's
 worker thread; inside the image tower, SigLIP's runs as
-``towers.match_image``. The counters: ``towers.weight_casts``, the
-parameters cast to the compute type on a call (``models/layers.py``
+``towers.match_image``; inside a proposer with experts (SDAR's),
+``towers.lm.experts`` runs a layer's router and held experts, one a
+layer a forward where the layers run eagerly (on the card they replay
+as one CUDA graph, which records no spans of its own). The counters:
+``towers.weight_casts``, the parameters cast to the compute type on a
+call (``models/layers.py``
 ``cast_param``); ``towers.match_text_positions``, the positions a
 bidirectional matcher's text tower encodes, rows times their width a
 chunk (``models/siglip.py`` ``encode_full_rows``);
@@ -35,7 +40,12 @@ the einsum attentions of the ``"xla"`` routes that ran the hand-written
 kernel or the library formula (``ops/attention.py`` ``xla_attention``);
 ``towers.layer_norm_calls.vecs<V>.rows_per_warp<R>``, the LayerNorm kernel's
 calls by the plan they took: the instance (V 16-byte vectors a lane) and
-the rows its busiest warp walked (``kernels/layer_norm.py``).
+the rows its busiest warp walked (``kernels/layer_norm.py``);
+``towers.lm_expert_rows``, the token-expert rows that a proposer's held
+experts give the layer's result, summed over its layers (the tokens a
+token's top k routes to this device's experts, ``models/sdar.py``
+``held_rows``: a device scalar a forward, summed on the device and read
+by ``take_counts``).
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ MATCH_TEXT_POSITIONS = "towers.match_text_positions"
 ATTENTION_KERNEL_CALLS = "towers.attention_kernel_calls"
 ATTENTION_LIBRARY_CALLS = "towers.attention_library_calls"
 LAYER_NORM_CALLS = "towers.layer_norm_calls"
+LM_EXPERT_ROWS = "towers.lm_expert_rows"
 
 _lock = threading.Lock()
 _live = 0  # request spans and traces open while a profiler records
@@ -100,20 +111,23 @@ def live() -> bool:
     return _on
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` while the spans are live. Under a
-    lock: a mesh runs its blocks on threads of one process."""
+def count(name: str, n=1) -> None:
+    """Add ``n`` to the counter ``name`` while the spans are live: a whole
+    number, or a device scalar, added on the device and read once by
+    :func:`take_counts`. Under a lock: a mesh runs its blocks on threads of
+    one process."""
     if _on:
         with _lock:
             _counts[name] = _counts.get(name, 0) + n
 
 
 def take_counts() -> Dict[str, int]:
-    """The counters since the last call, which resets them."""
+    """The counters since the last call, which resets them; a counter
+    kept on the device is read here."""
     with _lock:
         out = dict(_counts)
         _counts.clear()
-    return out
+    return {name: int(n) for name, n in out.items()}
 
 
 @contextlib.contextmanager

@@ -262,3 +262,47 @@ def make_test_bpe_files(tmpdir: str) -> Tuple[str, str]:
         for a, b in merges:
             f.write(f"{a} {b}\n")
     return vocab_path, merges_path
+
+
+def make_test_qwen_files(tmpdir: str) -> str:
+    """A miniature Qwen2 byte-level BPE in ``tmpdir`` (vocab.json,
+    merges.txt, tokenizer_config.json), as
+    :meth:`~conzic_torch.text.qwen_bpe.QwenBPETokenizer.from_pretrained`
+    reads it: the printable ASCII byte characters and 'Ġ', merges that
+    make each test word and 'Image' one piece, bare and after a space
+    (each word's remaining pairs merged left to right, ranked after all
+    earlier merges), then ``<|endoftext|>`` and ``<|MASK|>``."""
+    import json
+    import os
+
+    from conzic_torch.text.bpe import byte_to_unicode
+
+    chars = [byte_to_unicode()[b] for b in range(33, 127)] + ["Ġ"]
+    merges: List[Tuple[str, str]] = []
+    rank = {}
+    for word in ["Image"] + list(_TEST_WORDS):
+        for form in ("Ġ" + word, word):
+            parts = list(form)
+            while len(parts) > 1:  # BPE by the merges so far
+                ranked = [(rank[p], i) for i, p in
+                          enumerate(zip(parts, parts[1:])) if p in rank]
+                if not ranked:
+                    break
+                i = min(ranked)[1]
+                parts[i:i + 2] = [parts[i] + parts[i + 1]]
+            while len(parts) > 1:
+                rank[(parts[0], parts[1])] = len(merges)
+                merges.append((parts[0], parts[1]))
+                parts[:2] = [parts[0] + parts[1]]
+    tokens = list(dict.fromkeys(chars + ["".join(m) for m in merges]))
+    vocab = {t: i for i, t in enumerate(tokens)}
+    added = {str(len(tokens) + j): {"content": t, "special": True}
+             for j, t in enumerate(("<|endoftext|>", "<|MASK|>"))}
+    with open(os.path.join(tmpdir, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(tmpdir, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    with open(os.path.join(tmpdir, "tokenizer_config.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"added_tokens_decoder": added}, f)
+    return tmpdir

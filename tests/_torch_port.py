@@ -87,6 +87,53 @@ def carry_prune_tables(jax_cap, port_cap):
     port_cap.cfg.prune_stage1_layers = jax_cap.cfg.prune_stage1_layers
 
 
+# a tiny SDAR (conzic_torch/models/sdar.py): 2 layers of 4 query and 2
+# key/value heads of 16, 8 experts of 32, top 2, 4 held
+SDAR_TINY_LM = dict(vocab_size=2048, hidden_size=64, num_hidden_layers=2,
+                    num_attention_heads=4, num_key_value_heads=2,
+                    head_dim=16, moe_intermediate_size=32, num_experts=8,
+                    num_experts_per_tok=2, experts_held=4, expert_offset=0)
+SDAR_TRAFFIC = {"images_per_request": 2, "samples": 1, "candidate_k": 8,
+                "sentence_len": 3, "iterations": 1, "order": "shuffle",
+                "prompt": "Image of a", "lm_temperature": 0.1,
+                "alpha": 0.02, "beta": 2.0}
+
+
+def sdar_tiny_config(**lm):
+    """The benchmark's SDAR configuration (``conzic-sdar30b-l14``) at
+    ``SDAR_TINY_LM`` with ``lm``'s changes, its CLIP at the benchmark
+    tests' tiny widths, in fp32."""
+    import json
+
+    from bench_port.conftest import TINY_TEXT, TINY_VISION
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "bench_port", "configs",
+                           "conzic-sdar30b-l14.json")) as f:
+        cfg = json.load(f)
+    cfg["lm"].update(SDAR_TINY_LM, **lm)
+    cfg["match"]["projection_dim"] = 32
+    cfg["match"]["text_config"].update(TINY_TEXT)
+    cfg["match"]["vision_config"].update(TINY_VISION)
+    cfg["run"]["dtype"] = "float32"
+    return cfg
+
+
+def sdar_tiny_captioner(seed=2 ** 31 + 23, **lm):
+    """The port's Captioner on the CPU over :func:`sdar_tiny_config`, built
+    by the benchmark's harness from its seeded weights."""
+    from bench_port import inputs, system
+    from bench_port.families import clip as clip_family
+    from bench_port.families import sdar_moe as sdar_family
+
+    cfg = sdar_tiny_config(**lm)
+    fams = {"lm": sdar_family, "match": clip_family}
+    vocab = {r: f.vocab(cfg) for r, f in fams.items()}
+    spec = sdar_family.spec(cfg) + clip_family.spec(cfg)
+    weights = inputs.make_weights(spec, seed, "cpu", cfg["weights"])
+    return system.build(cfg, SDAR_TRAFFIC, fams, vocab, weights, "cpu")
+
+
 def jax_tiny_captioner(text_layers=2, seed=3, **cfg_kw):
     """A ``conzic_tpu`` fp32 captioner with the tiny towers of
     ``init_mode="proper"`` (flax's own initialisers, compiled: run eagerly

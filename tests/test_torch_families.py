@@ -21,8 +21,10 @@ from conzic_torch.models.bert import BertForMaskedLM
 from conzic_torch.models.clip import CLIPModel
 from conzic_torch.models.convert import hf_names, load_checkpoint
 from conzic_torch.models.families import FAMILIES, family, family_of
+from conzic_torch.models.sdar import SdarMoeLM
 from conzic_torch.models.siglip import SiglipModel
 from conzic_torch.text.bpe import CLIPBPETokenizer
+from conzic_torch.text.qwen_bpe import QwenBPETokenizer
 from conzic_torch.text.roberta_bpe import RobertaBPETokenizer
 from conzic_torch.text.unigram import SiglipTokenizer
 from conzic_torch.text.wordpiece import WordPieceTokenizer
@@ -39,6 +41,12 @@ WANT = {
         transformers.RobertaForMaskedLM(transformers.RobertaConfig(
             vocab_size=99, max_position_embeddings=40, type_vocab_size=1,
             pad_token_id=1, **_ENCODER)))),
+    "sdar_moe": ("lm", SdarMoeLM, QwenBPETokenizer, lambda: (
+        transformers.Qwen3MoeForCausalLM(transformers.Qwen3MoeConfig(
+            vocab_size=99, hidden_size=32, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=2, head_dim=8,
+            num_experts=4, num_experts_per_tok=2,
+            moe_intermediate_size=16)))),
     "clip": ("match", CLIPModel, CLIPBPETokenizer, lambda: (
         transformers.CLIPModel(transformers.CLIPConfig(
             text_config=dict(vocab_size=99, **_ENCODER),
@@ -56,6 +64,14 @@ WANT = {
 # Hugging Face tensors no port parameter reads: the MLM decoder, tied to
 # the word table and the head's bias, and the position ids
 _UNREAD = ("decoder.weight", "decoder.bias", "position_ids")
+# the first checkpoint name of a proposer's word table
+_WORDS = {"sdar_moe": ("embed", "model.embed_tokens.weight")}
+
+
+def parts(name) -> tuple:
+    """The checkpoint names a candidate of ``hf_names`` reads: a stacked
+    parameter's parts, or the one name."""
+    return name if isinstance(name, tuple) else (name,)
 
 
 @pytest.mark.parametrize("model_type", sorted(FAMILIES))
@@ -70,17 +86,21 @@ def test_family_entry(model_type):
     model = fam.build(config, torch.float32, "xla", "none")
     assert isinstance(model, model_cls)
     sd = hf.state_dict()
-    read = set()
+    read, n_read = set(), 0
     for name, p in model.named_parameters():
-        key = next(n for n in hf_names(model, name) if n in sd)
-        assert sd[key].numel() == p.numel(), name
-        read.add(key)
-    assert len(read) == len(list(model.parameters()))
+        key = next(n for n in hf_names(model, name)
+                   if all(k in sd for k in parts(n)))
+        assert sum(sd[k].numel() for k in parts(key)) == p.numel(), name
+        read.update(parts(key))
+        n_read += len(parts(key))
+    assert len(read) == n_read
     unread = {k for k in sd if k not in read}
     assert all(k.endswith(_UNREAD) for k in unread), unread
     if role == "lm":
-        assert hf_names(model, "embeddings.word") == (
-            f"{model_type}.embeddings.word_embeddings.weight",)
+        path, first = _WORDS.get(model_type, (
+            "embeddings.word",
+            f"{model_type}.embeddings.word_embeddings.weight"))
+        assert hf_names(model, path) == (first,)
         return
     cap = Captioner.from_random(ConzicConfig(attn_impl="xla"),
                                 clip_config=config, device="cpu")

@@ -1,8 +1,9 @@
 """The port's tracing (``conzic_torch/runtime/profiling.py``) on the CPU:
 the span tree of a tiny generation under ``torch.profiler``, nothing
 recorded or counted without a profiler, the weight-cast counter against
-a hand count, the counters' lock, and the ``CONZIC_TRACE_DIR`` trace of
-``api.run``."""
+a hand count, the counters' lock, the ``CONZIC_TRACE_DIR`` trace of
+``api.run``, and a proposer's expert layers (SDAR's): one span a layer a
+forward and the routed rows of its held experts."""
 
 import json
 import os
@@ -14,7 +15,12 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from _torch_port import TRAINED_TINY, one_torch_thread  # noqa: F401
+from _torch_port import (  # noqa: F401
+    SDAR_TRAFFIC,
+    TRAINED_TINY,
+    one_torch_thread,
+    sdar_tiny_captioner,
+)
 from conzic_torch.api import run
 from conzic_torch.config import ConzicConfig
 from conzic_torch.engine.gibbs import row_chunk_width
@@ -192,6 +198,50 @@ def test_live_holds_inside_a_request_span_under_a_profiler():
             assert profiling.live()
             layer_norm(x, torch.ones(64), torch.zeros(64), 1e-5)
         assert not profiling.live()
+    assert profiling.take_counts() == {}
+
+
+@pytest.mark.parametrize("held", [8, 4])
+def test_expert_spans_and_rows_of_a_proposer_with_experts(held):
+    """Every SDAR layer's router and held experts run in one
+    ``towers.lm.experts`` span inside ``towers.lm``; the routed rows of the
+    held experts: with all 8 held, every token's top 2 (a hand count),
+    with 4, fewer; none counted with no profiler."""
+    cap = sdar_tiny_captioner(experts_held=held)
+    t = SDAR_TRAFFIC
+    lm = cap.bert_model.config
+    pixels = torch.rand(2, 64, 64, 3,
+                        generator=torch.Generator().manual_seed(0))
+
+    def generate():
+        emb = cap.encode_images(pixels)
+        return cap.run(emb, prompt=t["prompt"], max_len=t["sentence_len"],
+                       top_k=t["candidate_k"], temperature=0.1,
+                       max_iter=t["iterations"], alpha=0.02, beta=2.0,
+                       order="shuffle", rng=np.random.RandomState(3))
+
+    profiling.take_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced_ids = generate().iter_ids
+    spans = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith(profiling.PREFIX):
+            s = e.start_ns()
+            spans.setdefault(e.name()[len(profiling.PREFIX):], []).append(
+                (s, s + e.duration_ns()))
+    rows = profiling.take_counts()[profiling.LM_EXPERT_ROWS]
+    steps = t["iterations"] * t["sentence_len"]
+    assert len(spans["towers.lm.experts"]) == steps * lm.num_layers
+    for outer in spans["towers.lm"]:
+        assert len(inside(outer, spans["towers.lm.experts"])) == (
+            lm.num_layers)
+    tokens = 2 * (1 + 3 + t["sentence_len"] + 1)  # B rows, framed
+    every = steps * lm.num_layers * tokens * lm.num_experts_per_tok
+    if held == lm.num_experts:
+        assert rows == every
+    else:
+        assert 0 < rows < every
+    np.testing.assert_array_equal(generate().iter_ids, traced_ids)
     assert profiling.take_counts() == {}
 
 
